@@ -12,14 +12,29 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    for NGP/CIC/TSC at drift 0 and 3, uniform and clustered particles, on
    128^3, 256^3 and (z-blocked tiles) 512^3 grids; two deposits must be
    bitwise equal; kernel and twin times at 256^3 particles on 256^3;
+   then the multigrid stencil kernels (half-sweep, residual norm,
+   fused restriction, prolongation) at n = 16, 128, 256 and 512, every
+   residual kind with and without rhs, two residual norms bitwise equal;
+   kernel and twin times at 256^3;
 4. golden: the full-horizon configuration of
    ``tests/test_full_run_fidelity.py`` through ``pysco_tpu_torch.run``
-   must match ``tests/golden_pk_32.json`` within 1e-4;
+   must match ``tests/golden_pk_32.json`` within 1e-4; two P(k) of one
+   256^3 density must be bitwise equal;
 5. main path at a realistic size: newton, fft, CIC, 2LPT, 256^3
    particles on a 256^3 grid, lazy re-binning, z = 49 -> 2, with
    snapshots (NumPy ``npz``: the format that needs neither h5py nor
    pyarrow) and P(k) in a temporary directory; the kernels must launch
-   on every step.
+   on every step;
+6. multigrid e2e: the ``newton_multigrid_tsc_2lpt`` and
+   ``mond_multigrid`` rows of ``tests/test_e2e.py`` (16^3) on the card
+   and on the CPU through the port: P(k) within 1e-4, and two card runs
+   with bitwise-equal final snapshots;
+7. multigrid main path: newton, multigrid V-cycles, TSC, 2LPT, 256^3
+   particles on a 256^3 grid, box 500 Mpc/h, lazy re-binning, z = 49 ->
+   2, snapshots and P(k); all six kernels must launch on every step; the
+   median step time, the V-cycles per solve and the multigrid
+   components' times at 256^3;
+8. QUMOND: multigrid at 128^3 for a few steps.
 
 The last two lines of standard output are the kernels' JSON record and
 the result line ``{"ok": true, "device": {...}}``.
@@ -43,7 +58,18 @@ KERNELS = {
                 "pysco_tpu/ops/pallas_pm.py:521"),
     "gather": ("pysco_tpu_torch/csrc/gather.cu",
                "pysco_tpu/ops/pallas_pm.py:804"),
+    "half_sweep": ("pysco_tpu_torch/csrc/half_sweep.cu",
+                   "pysco_tpu/ops/pallas_stencil.py:177"),
+    "residual_norm2": ("pysco_tpu_torch/csrc/residual.cu",
+                       "pysco_tpu/ops/pallas_stencil.py:436"),
+    "restrict3": ("pysco_tpu_torch/csrc/residual.cu",
+                  "pysco_tpu/ops/pallas_stencil.py:607"),
+    "add_prolongation": ("pysco_tpu_torch/csrc/prolongation.cu",
+                         "pysco_tpu/ops/pallas_stencil.py:690"),
 }
+RESIDUAL_KINDS = (("linear", None), ("laplacian", None),
+                  ("reformulated", None), ("cubic", -0.27),
+                  ("quartic", -0.27))
 
 
 def check(cond, msg: str) -> None:
@@ -71,10 +97,11 @@ def phase_device(torch):
 
 
 def phase_build():
-    from pysco_tpu_torch.ops import cuda_build, tiled_pm
+    from pysco_tpu_torch.ops import cuda_build, stencil, tiled_pm
 
     t0 = time.perf_counter()
     tiled_pm._kernels()
+    stencil._kernels()
     log(f"[2 build] kernels built and loaded in "
         f"{time.perf_counter() - t0:.2f} s (nvcc "
         f"{cuda_build.BUILD_INFO['seconds']} s)")
@@ -194,6 +221,134 @@ def phase_kernels(torch):
     return err, times[("cic", 0)]
 
 
+def _grids(torch, n, gen):
+    x = torch.randn((n, n, n), generator=gen, device="cuda")
+    b = 5.0 * torch.randn((n, n, n), generator=gen, device="cuda")
+    rhs = 0.3 * torch.randn((n, n, n), generator=gen, device="cuda")
+    return x, b, rhs
+
+
+def _agree(name, got, want, rel, what):
+    """Max |got - want|, checked against rel x max |want|."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= rel * scale, f"{name} vs twin {err:.3e} > {rel} x "
+          f"{scale:.3e} ({what})")
+    return err
+
+
+def phase_stencil_kernels(torch, np):
+    """Kernels 3, 5, 6 and 7 against their twins at the multigrid sizes."""
+    from pysco_tpu_torch.models import laplacian as lap
+    from pysco_tpu_torch.ops import stencil as st
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4321)
+    err = dict.fromkeys(("half_sweep", "residual_norm2", "restrict3",
+                         "add_prolongation"), 0.0)
+    for n in (16, 128, 256, 512):
+        x, b, rhs = _grids(torch, n, gen)
+        red, black = lap.pack_rb(x)
+        h2b = lap.pack_rb(b * float(np.float32(1.0 / (n * n))))
+        rhs_p = lap.pack_rb(rhs)
+        for to_red, c in ((True, 0), (False, 1)):
+            src, dst = (black, red) if to_red else (red, black)
+            for r in (None, rhs_p[c]):
+                got = st.half_sweep(src, dst, h2b[c], to_red, 1.25, r)
+                want = st.half_sweep_plain(src, dst, h2b[c], to_red, 1.25, r)
+                e = _agree("half_sweep", got, want, 2e-6,
+                           f"n={n} red={to_red} rhs={r is not None}")
+                err["half_sweep"] = max(err["half_sweep"], e)
+                log(f"[3 stencil] n={n} half_sweep red={int(to_red)} "
+                    f"rhs={int(r is not None)}: |k-twin| {e:.2e}, bitwise "
+                    f"{int(torch.equal(got, want))}")
+        del red, black, h2b, rhs_p
+        for kind, q in RESIDUAL_KINDS:
+            bb = None if kind == "laplacian" else b
+            for r in (None, rhs):
+                tag = f"n={n} {kind} rhs={int(r is not None)}"
+                got = st.residual_norm2(kind, x, bb, r, q)
+                again = st.residual_norm2(kind, x, bb, r, q)
+                want = st.residual_norm2_plain(kind, x, bb, r, q)
+                torch.cuda.synchronize()
+                check(torch.equal(got, again),
+                      f"residual_norm2 not bitwise reproducible ({tag})")
+                e_n = _agree("residual_norm2", got, want, 5e-6, tag)
+                outs = st.restrict3(kind, x, bb, r, q)
+                twins = st.restrict3_plain(kind, x, bb, r, q)
+                check(len(outs) == len(twins), f"restrict3 outputs ({tag})")
+                e_r = max(_agree("restrict3", o, t, 2e-6, tag)
+                          for o, t in zip(outs, twins))
+                (only,) = st.restrict3(kind, x, bb, r, q, residual_only=True)
+                check(torch.equal(only, outs[0]),
+                      f"restrict3 residual_only differs ({tag})")
+                err["residual_norm2"] = max(err["residual_norm2"], e_n)
+                err["restrict3"] = max(err["restrict3"], e_r)
+                log(f"[3 stencil] {tag}: residual_norm2 |k-twin| {e_n:.2e} "
+                    f"(of {float(want):.6e}); restrict3 |k-twin| {e_r:.2e}")
+        xc = torch.randn((n // 2,) * 3, generator=gen, device="cuda")
+        got = st.add_prolongation(x, xc)
+        want = st.add_prolongation_plain(x, xc)
+        e = _agree("add_prolongation", got, want, 2e-6, f"n={n}")
+        err["add_prolongation"] = max(err["add_prolongation"], e)
+        log(f"[3 stencil] n={n} add_prolongation |k-twin| {e:.2e}, bitwise "
+            f"{int(torch.equal(got, want))}")
+        del x, b, rhs, xc, got, want
+    # times at the main path's grid, 256^3
+    n = 256
+    x, b, rhs = _grids(torch, n, gen)
+    red, black = lap.pack_rb(x)
+    h2b_r, _ = lap.pack_rb(b * float(np.float32(1.0 / (n * n))))
+    xc = torch.randn((n // 2,) * 3, generator=gen, device="cuda")
+    calls = {
+        "half_sweep": (lambda: st.half_sweep(black, red, h2b_r, True, 1.25),
+                       lambda: st.half_sweep_plain(black, red, h2b_r, True,
+                                                   1.25)),
+        "residual_norm2": (
+            lambda: st.residual_norm2("linear", x, b),
+            lambda: st.residual_norm2_plain("linear", x, b)),
+        "restrict3": (
+            lambda: st.restrict3("linear", x, b, residual_only=True),
+            lambda: st.restrict3_plain("linear", x, b, residual_only=True)),
+        "add_prolongation": (lambda: st.add_prolongation(x, xc),
+                             lambda: st.add_prolongation_plain(x, xc)),
+    }
+    times = {}
+    for name, (kern, twin) in calls.items():
+        times[name] = time_ms(torch, kern)
+        times[f"{name}_plain"] = time_ms(torch, twin)
+        log(f"[3 stencil times] 256^3 {name}: {times[name]:.3f} ms (twin "
+            f"{times[f'{name}_plain']:.3f})")
+    for kind, q in RESIDUAL_KINDS[1:]:
+        bb = None if kind == "laplacian" else b
+        t_n = time_ms(torch, lambda: st.residual_norm2(kind, x, bb, q=q))
+        t_r = time_ms(torch, lambda: st.restrict3(kind, x, bb, q=q))
+        t_rr = time_ms(torch, lambda: st.restrict3(kind, x, bb, rhs, q=q))
+        log(f"[3 stencil times] 256^3 {kind}: residual_norm2 {t_n:.3f} ms, "
+            f"restrict3 {t_r:.3f} ms (with rhs {t_rr:.3f} ms)")
+    return err, times
+
+
+def phase_pk_bitwise(torch):
+    from pysco_tpu_torch.ops import fourier
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(99)
+    n = 256
+    density = 1.0 + 0.3 * torch.randn((n, n, n), generator=gen, device="cuda")
+    xk = fourier.rfft3(density)
+    first = fourier.power_spectrum(xk, 3)
+    again = fourier.power_spectrum(xk, 3)
+    for a, c in zip(first, again):
+        check(torch.equal(a, c), "P(k) not bitwise reproducible")
+    twin = fourier.power_spectrum(xk.cpu(), 3)
+    rel = max(float(((a.cpu() - c).abs() / c.abs()).max())
+              for a, c in zip(first, twin))
+    check(rel < 1e-5, f"P(k) on the card vs the CPU: {rel:.2e}")
+    log(f"[4 pk] 256^3: two P(k) bitwise equal ({first[0].shape[0]} bins); "
+        f"card vs CPU max rel {rel:.2e}")
+
+
 GOLDEN_PARAM = {
     "theory": "newton", "H0": 72, "Om_m": 0.25733, "T_cmb": 2.726,
     "N_eff": 3.044, "w0": -1.0, "wa": 0.0, "boxlen": 100,
@@ -239,73 +394,234 @@ def phase_golden(np, tmp):
     return worst
 
 
-def phase_main_path(torch, np, tmp):
-    import pysco_tpu_torch
-    from pysco_tpu_torch.cosmo import write_power_spectrum_table
+def _check_launches(recs, names, tag):
+    """Every step of a run must have launched each kernel of ``names``."""
+    prev = dict.fromkeys(names, 0)
+    for r in recs:
+        for k in names:
+            check(r.launches[k] > prev[k],
+                  f"{tag} step {r.nsteps}: the {k} kernel did not launch")
+        prev = {k: r.launches[k] for k in names}
+        check(r.overflow == 0, f"{tag} step {r.nsteps}: {r.overflow} "
+              "drift-bound violations")
+
+
+def _check_outputs(torch, np, base, n, scheme, tag):
+    """The final npz snapshot re-deposits to mean density 1; every P(k)
+    file is finite and positive. Returns the snapshot's arrays."""
     from pysco_tpu_torch.ops import tiled_pm as tp
     from pysco_tpu_torch.utils import io as iostream
 
-    pk_file = os.path.join(tmp, "pk_main.dat")
+    snap = [f for f in os.listdir(os.path.join(base, "output_00001"))
+            if f.endswith(".npz")]
+    check(len(snap) == 1, f"{tag}: snapshot files {snap}")
+    pos, vel = iostream.read_snapshot_particles_npz(
+        os.path.join(base, "output_00001", snap[0]))
+    check(pos.shape == (n ** 3, 3) and np.isfinite(vel).all(),
+          f"{tag}: bad final snapshot")
+    pc, vc = tp.to_columns_host(pos, vel, n ** 3)
+    ps, _, ts = tp.sort_particles(torch.as_tensor(pc, device="cuda"),
+                                  torch.as_tensor(vc, device="cuda"), n,
+                                  scheme)
+    mean = float(tp.deposit(ps, ts, n, scheme).double().mean())
+    check(abs(mean - 1.0) < 1e-5, f"{tag}: density mean {mean}")
+    pks = sorted(os.listdir(os.path.join(base, "power")))
+    check(pks, f"{tag}: no P(k) written")
+    for name in pks:
+        data = np.loadtxt(os.path.join(base, "power", name))
+        check(np.isfinite(data).all() and (data[:, 1] > 0).all(),
+              f"{tag}: bad P(k) in {name}")
+    log(f"[{tag}] density mean {mean:.9f}; {len(pks)} finite P(k) files")
+    return pos, vel
+
+
+def _drive(torch, tmp, tag, overrides, names):
+    """One run of the port on the card at 256^3-class sizes, the launch
+    counts and multigrid statistics zeroed just before and read just
+    after. Returns (records, launches, multigrid stats, base)."""
+    import pysco_tpu_torch
+    from pysco_tpu_torch.cosmo import write_power_spectrum_table
+    from pysco_tpu_torch.models import multigrid
+    from pysco_tpu_torch.ops import stencil, tiled_pm
+
+    pk_file = os.path.join(tmp, f"pk_{tag}.dat")
     write_power_spectrum_table(pk_file)
-    base = os.path.join(tmp, "main")
-    n = 256
+    base = os.path.join(tmp, tag)
     param = dict(GOLDEN_PARAM)
-    param.update({
-        "boxlen": 500.0, "ncoarse": 8, "npart": n ** 3, "fixed_ICS": False,
-        "power_spectrum_file": pk_file, "base": base, "z_out": "[2]",
-        "mass_scheme": "CIC", "verbose": 0,
-    })
+    param.update({"fixed_ICS": False, "power_spectrum_file": pk_file,
+                  "base": base, "verbose": 0})
+    param.update(overrides)
     del param["pm_precision_widened"]  # the production default
-    tp.reset_launches()
+    tiled_pm.reset_launches()
+    stencil.reset_launches()
+    multigrid.reset_stats()
     t0 = time.perf_counter()
     recs = pysco_tpu_torch.run(param, device="cuda")
     wall = time.perf_counter() - t0
-    launches = dict(tp.LAUNCHES)
-    prev = {"deposit": 0, "gather": 0}
-    for r in recs:
-        for k in prev:
-            check(r.launches[k] > prev[k],
-                  f"step {r.nsteps}: the {k} kernel did not launch")
-        prev = r.launches
-        check(r.overflow == 0, f"step {r.nsteps}: {r.overflow} drift-bound "
-              "violations")
+    launches = {**tiled_pm.LAUNCHES, **stencil.LAUNCHES}
+    stats = dict(multigrid.STATS)
+    _check_launches(recs, names, tag)
+    drifts = [r.drift for r in recs]
+    log(f"[{tag}] {len(recs)} steps in {wall:.1f} s (with host ICs and "
+        f"I/O); drift levels {drifts}")
+    log(f"[{tag}] step wall times ms: "
+        + " ".join(f"{1e3 * r.seconds:.1f}" for r in recs))
+    return recs, launches, stats, base
+
+
+def phase_main_path(torch, np, tmp):
+    n = 256
+    recs, launches, _, base = _drive(
+        torch, tmp, "5 main", {"boxlen": 500.0, "ncoarse": 8,
+                               "npart": n ** 3, "z_out": "[2]",
+                               "mass_scheme": "CIC"},
+        ("deposit", "gather"))
     drifts = [r.drift for r in recs]
     check(len(recs) >= 8, f"only {len(recs)} steps")
     check(any(drifts), "no stale-bin step")
     check(any(d == 0 for d in drifts[drifts.index(max(drifts)):]),
           "no re-sort after a stale-bin step")
-    log(f"[5 main] {len(recs)} steps in {wall:.1f} s (with host ICs and "
-        f"I/O); drift levels {drifts}")
-    log("[5 main] step wall times ms: "
-        + " ".join(f"{1e3 * r.seconds:.1f}" for r in recs))
     sorted_ms = [1e3 * r.seconds for r in recs[1:] if r.drift == 0]
     stale_ms = [1e3 * r.seconds for r in recs[1:] if r.drift]
     log(f"[5 main] median step: sorted {np.median(sorted_ms):.1f} ms "
         f"({len(sorted_ms)} steps), stale-bin {np.median(stale_ms):.1f} ms "
         f"({len(stale_ms)} steps); first step excluded")
-    snap = [f for f in os.listdir(os.path.join(base, "output_00001"))
-            if f.endswith(".npz")]
-    check(len(snap) == 1, f"snapshot files {snap}")
-    pos, vel = iostream.read_snapshot_particles_npz(
-        os.path.join(base, "output_00001", snap[0]))
-    check(pos.shape == (n ** 3, 3) and np.isfinite(vel).all(),
-          "bad final snapshot")
-    pc, vc = tp.to_columns_host(pos, vel, n ** 3)
-    pc = torch.as_tensor(pc, device="cuda")
-    ps, _, ts = tp.sort_particles(pc, torch.as_tensor(vc, device="cuda"),
-                                  n, "cic")
-    mean = float(tp.deposit(ps, ts, n, "cic").double().mean())
-    check(abs(mean - 1.0) < 1e-5, f"density mean {mean}")
-    pks = sorted(os.listdir(os.path.join(base, "power")))
-    check(pks, "no P(k) written")
-    for name in pks:
-        data = np.loadtxt(os.path.join(base, "power", name))
-        check(np.isfinite(data).all() and (data[:, 1] > 0).all(),
-              f"bad P(k) in {name}")
-    log(f"[5 main] density mean {mean:.9f}; {len(pks)} finite P(k) files; "
-        f"launches deposit {launches['deposit']}, gather "
+    _check_outputs(torch, np, base, n, "cic", "5 main")
+    log(f"[5 main] launches deposit {launches['deposit']}, gather "
         f"{launches['gather']}")
+
+
+E2E_PARAM = {  # tests/test_e2e.py's base configuration, npz snapshots
+    "theory": "newton", "mond_function": "simple", "mond_g0": 1.2,
+    "mond_scale_factor_exponent": 0, "mond_alpha": 1,
+    "parametrized_mu0": -0.1, "H0": 72, "Om_m": 0.25733, "T_cmb": 2.726,
+    "N_eff": 3.044, "w0": -1.0, "wa": 0.0, "boxlen": 100, "ncoarse": 4,
+    "npart": 16 ** 3, "z_start": 49, "seed": 42, "position_ICS": "center",
+    "fixed_ICS": False, "paired_ICS": False, "dealiased_ICS": False,
+    "initial_conditions": "2LPT", "output_snapshot_format": "npz",
+    "z_out": "[40]", "save_power_spectrum": "z_out",
+    "integrator": "leapfrog", "mass_scheme": "TSC", "n_reorder": 3,
+    "Courant_factor": 1.0, "max_aexp_stepping": 10,
+    "linear_newton_solver": "multigrid", "gradient_stencil_order": 5,
+    "Npre": 2, "Npost": 1, "epsrel": 1e-2, "verbose": 0,
+}
+
+
+def phase_mg_e2e(np, tmp):
+    """Two tests/test_e2e.py multigrid rows on the card (twice) and on the
+    CPU: P(k) within 1e-4, the card's reruns bitwise equal."""
+    import pysco_tpu_torch
+    from pysco_tpu_torch.utils import io as iostream
+
+    k = np.logspace(-3, 2, 200)
+    pk_file = os.path.join(tmp, "pk_e2e.dat")
+    np.savetxt(pk_file, np.c_[k, 2e4 * (k / 0.02)
+                              / (1 + (k / 0.02) ** 2) ** 2 * 1e2])
+
+    def outputs(base):
+        snap = [f for f in os.listdir(os.path.join(base, "output_00001"))
+                if f.endswith(".npz")]
+        check(len(snap) == 1, f"e2e snapshot files {snap}")
+        pks = sorted(os.listdir(os.path.join(base, "power")))
+        return (iostream.read_snapshot_particles_npz(
+            os.path.join(base, "output_00001", snap[0])),
+            {p: np.loadtxt(os.path.join(base, "power", p)) for p in pks})
+
+    for row, over in (("newton_multigrid_tsc_2lpt", {}),
+                      ("mond_multigrid", {"theory": "mond"})):
+        got = {}
+        for tag, device in (("a", "cuda"), ("b", "cuda"), ("cpu", "cpu")):
+            base = os.path.join(tmp, f"e2e_{row}_{tag}")
+            pysco_tpu_torch.run(dict(E2E_PARAM, power_spectrum_file=pk_file,
+                                     base=base, **over), device=device)
+            got[tag] = outputs(base)
+        for x, y in zip(got["a"][0], got["b"][0]):
+            check(np.array_equal(x, y),
+                  f"{row}: two card runs differ in their final snapshot")
+        check(got["a"][1].keys() == got["cpu"][1].keys() and got["a"][1],
+              f"{row}: P(k) files differ")
+        worst = 0.0
+        for name, a in got["a"][1].items():
+            check(np.array_equal(a, got["b"][1][name]),
+                  f"{row}: two card runs differ in {name}")
+            c = got["cpu"][1][name]
+            check(np.array_equal(a[:, 2], c[:, 2]), f"{row}: mode counts")
+            sel = c[:, 2] >= 8
+            rel = float((np.abs(a[sel, 1] - c[sel, 1]) / c[sel, 1]).max())
+            check(rel < 1e-4, f"{row} {name}: card vs CPU P(k) {rel:.2e}")
+            worst = max(worst, rel)
+        log(f"[6 mg e2e] {row}: two card runs bitwise equal; card vs CPU "
+            f"max rel P(k) {worst:.2e} (bound 1e-4)")
+
+
+def phase_mg_main_path(torch, np, tmp):
+    """The multigrid main path at 256^3, then its components' times."""
+    from pysco_tpu_torch.models import laplacian as lap
+    from pysco_tpu_torch.models import multigrid as mg
+    from pysco_tpu_torch.ops import stencil as st
+    from pysco_tpu_torch.ops import tiled_pm as tp
+
+    n = 256
+    recs, launches, stats, base = _drive(
+        torch, tmp, "7 mg main", {"boxlen": 500.0, "ncoarse": 8,
+                                  "npart": n ** 3, "z_out": "[2]",
+                                  "mass_scheme": "TSC",
+                                  "linear_newton_solver": "multigrid",
+                                  "multigrid_cycle": "V"},
+        tuple(KERNELS))
+    check(len(recs) >= 8, f"only {len(recs)} steps")
+    steps_ms = [1e3 * r.seconds for r in recs[1:]]
+    per_step = {k: (recs[-1].launches[k] - recs[0].launches[k])
+                / (len(recs) - 1) for k in KERNELS}
+    sorted_ms = [t for t, r in zip(steps_ms, recs[1:]) if not r.drift]
+    log(f"[7 mg main] median step {np.median(steps_ms):.1f} ms over "
+        f"{len(steps_ms)} steps, {len(sorted_ms)} of them sorted (median "
+        f"{np.median(sorted_ms) if sorted_ms else float('nan'):.1f} ms); "
+        f"first excluded; V-cycles per solve "
+        f"{stats['cycles'] / stats['solves']:.2f} ({stats['cycles']} in "
+        f"{stats['solves']} solves, first call included)")
+    log("[7 mg main] launches per step: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in per_step.items()))
+    pos, vel = _check_outputs(torch, np, base, n, "tsc", "7 mg main")
+    # component times on the final state's Poisson problem
+    pc, vc = tp.to_columns_host(pos, vel, n ** 3)
+    ps, _, ts = tp.sort_particles(torch.as_tensor(pc, device="cuda"),
+                                  torch.as_tensor(vc, device="cuda"), n,
+                                  "tsc")
+    rhs = 1.5 / 3.0 * 0.25733 * (tp.deposit(ps, ts, n, "tsc") - 1.0)
+    del ps, ts, pc, vc
+    x = lap.initialise_potential(rhs)
+    x = mg.linear(x, rhs, 8, 2, 1, 0.0, "V")  # to the stall
+    red, black = lap.pack_rb(x)
+    xc = st.restrict3("linear", x, rhs, residual_only=True)[0]
+    comps = {
+        "pack_rb": lambda: lap.pack_rb(x),
+        "unpack_rb": lambda: lap.unpack_rb(red, black),
+        "smoothing(Npre=2)": lambda: lap.smoothing(x, rhs, 2),
+        "half_sweep": lambda: st.half_sweep(black, red, red, True, 1.25),
+        "restrict_residual": lambda: lap.restrict_residual(x, rhs),
+        "add_prolongation": lambda: st.add_prolongation(x, xc),
+        "residual_error": lambda: lap.residual_error(x, rhs),
+        "truncation_error": lambda: lap.truncation_error(x),
+        "V_cycle": lambda: mg.V_cycle(x, rhs, 8, 2, 1),
+    }
+    for name, fn in comps.items():
+        log(f"[7 mg components] 256^3 {name}: {time_ms(torch, fn):.3f} ms")
     return launches
+
+
+def phase_mond(torch, np, tmp):
+    n = 128
+    recs, _, stats, base = _drive(
+        torch, tmp, "8 mond", {"theory": "mond", "boxlen": 250.0,
+                               "ncoarse": 7, "npart": n ** 3,
+                               "z_out": "[30]", "mass_scheme": "TSC",
+                               "linear_newton_solver": "multigrid"},
+        tuple(KERNELS))
+    check(len(recs) >= 3, f"only {len(recs)} QUMOND steps")
+    log(f"[8 mond] V-cycles per solve {stats['cycles'] / stats['solves']:.2f}"
+        f" ({stats['solves']} solves: two per force evaluation)")
+    _check_outputs(torch, np, base, n, "tsc", "8 mond")
 
 
 def main() -> int:
@@ -316,15 +632,24 @@ def main() -> int:
     import numpy as np
     import torch
 
+    t_start = time.perf_counter()
     phase_device(torch)
     phase_build()
     err, times = phase_kernels(torch)
+    err_st, times_st = phase_stencil_kernels(torch, np)
+    err.update(err_st)
+    times.update(times_st)
     tmp = tempfile.mkdtemp(prefix="pysco_smoke_")
     try:
         phase_golden(np, tmp)
-        launches = phase_main_path(torch, np, tmp)
+        phase_pk_bitwise(torch)
+        phase_main_path(torch, np, tmp)
+        phase_mg_e2e(np, tmp)
+        launches = phase_mg_main_path(torch, np, tmp)
+        phase_mond(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
     record = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],

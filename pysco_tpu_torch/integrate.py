@@ -38,24 +38,27 @@ def _half_dt(dt) -> tuple[float, float]:
     return float(dt), float(np.float32(0.5) * dt)
 
 
-def step_impl(cfg: SolverConfig, integrator: str, save_pk: bool, position,
-              velocity, acceleration, potential, u, dyn: DynScalars, dt):
+def step_impl(cfg: SolverConfig, integrator: str, first_call: bool,
+              save_pk: bool, position, velocity, acceleration, potential, u,
+              dyn: DynScalars, dt):
     """One step with a fresh sort; returns (position, velocity,
-    acceleration, potential, u, pk, diagnostics)."""
+    acceleration, potential, u, pk, diagnostics). ``first_call`` starts
+    the multigrid solves from a Jacobi guess (the run loop passes False:
+    its first force evaluation comes before the loop)."""
     dt, half_dt = _half_dt(dt)
     if integrator == "leapfrog":
         velocity = velocity - acceleration * half_dt
         position = mesh.periodic_wrap(position + velocity * dt)
         (position, velocity, acceleration, potential, u, pk,
-         overflow) = solver_mod.pm(cfg, save_pk, position, velocity,
-                                   potential, u, dyn)
+         overflow) = solver_mod.pm(cfg, first_call, save_pk, position,
+                                   velocity, potential, u, dyn)
         velocity = velocity - acceleration * half_dt
     elif integrator == "euler":
         position = mesh.periodic_wrap(position + velocity * dt)
         velocity = velocity - acceleration * dt
         (position, velocity, acceleration, potential, u, pk,
-         overflow) = solver_mod.pm(cfg, save_pk, position, velocity,
-                                   potential, u, dyn)
+         overflow) = solver_mod.pm(cfg, first_call, save_pk, position,
+                                   velocity, potential, u, dyn)
     else:
         raise NotImplementedError(
             f"integrator {integrator!r}, must be 'leapfrog' or 'euler'"

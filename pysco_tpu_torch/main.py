@@ -22,7 +22,7 @@ import torch
 from . import cosmo, ic
 from . import integrate as integration
 from . import solver as solver_mod
-from .ops import tiled_pm
+from .ops import stencil, tiled_pm
 from .utils import io as iostream
 from .utils.config import Params, extra_name, params_from_dict, with_defaults
 from .utils.units import set_units
@@ -35,7 +35,7 @@ class StepRecord(NamedTuple):
     drift: int  # lazy window level, 0 on a sorted step
     seconds: float  # host wall time of the step, device synchronised
     overflow: int  # particles outside their drift windows
-    launches: dict  # tiled_pm.LAUNCHES after the step
+    launches: dict  # tiled_pm.LAUNCHES and stencil.LAUNCHES after the step
 
 
 def _setup_logging(verbose: int) -> None:
@@ -145,7 +145,8 @@ def run(param, device="cuda") -> list:
     spectrum is written, so an aborted step leaves no P(k) file (the JAX
     loop writes first); scatter-engine runs are not Morton-reordered
     every ``n_reorder`` steps (reordering only changes memory locality);
-    no verbose=2 component breakdown and no profiler hook.
+    no verbose=2 component breakdown, no per-cycle multigrid residual
+    logging and no profiler hook.
     """
     device = _resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,7 +204,7 @@ def run(param, device="cuda") -> list:
     dyn = solver_mod.compute_dynamics(param)
     save_pk_first = pk_mode == "yes"
     position, velocity, acceleration, potential, u, pk, _ = solver_mod.pm(
-        cfg, save_pk_first, position, velocity, potential, u, dyn
+        cfg, True, save_pk_first, position, velocity, potential, u, dyn
     )
     if save_pk_first:
         _write_pk(pk, param)
@@ -255,7 +256,7 @@ def run(param, device="cuda") -> list:
         else:
             (position, velocity, acceleration, potential, u, pk,
              diag) = integration.step_impl(
-                cfg, integrator, save_pk, position, velocity,
+                cfg, integrator, False, save_pk, position, velocity,
                 acceleration, potential, u, dyn, dt,
             )
         # these fetches synchronise the device: a true per-step wall time
@@ -265,7 +266,8 @@ def run(param, device="cuda") -> list:
         seconds = perf_counter() - t_step0
         logging.info("step wall time: %.1f ms", 1e3 * seconds)
         records.append(StepRecord(int(param["nsteps"]), presorted, seconds,
-                                  overflow, dict(tiled_pm.LAUNCHES)))
+                                  overflow,
+                                  {**tiled_pm.LAUNCHES, **stencil.LAUNCHES}))
         _handle_overflow(
             param, overflow,
             "lazy re-binning drift-bound violation (particles outside the "

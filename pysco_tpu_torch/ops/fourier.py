@@ -12,6 +12,7 @@ the CPU, cuFFT on the card).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -128,26 +129,82 @@ def gradient_inverse_laplacian_compensated(xk: torch.Tensor,
     )
 
 
+class _PkBins(NamedTuple):
+    """Fixed-order binning of an (n, n, n//2+1) half grid for
+    :func:`power_spectrum`, bins 1 .. kmax-1 only.
+
+    The modes of each bin, in flat-index order, are laid out in chunks of
+    ``_PK_CHUNK`` slots, each bin starting on a chunk; ``slot_src`` gives
+    each slot's flat index (the trailing index ``n_flat`` reads a zero).
+    A chunk is summed in one row reduction, then each bin's chunks (padded
+    to a common count with the extra zero chunk) in another: every bin
+    has one summation order, on every device and run, and no float
+    atomics are involved."""
+
+    slot_src: torch.Tensor  # (n_chunks * _PK_CHUNK,) int64
+    chunk_of_bin: torch.Tensor  # (n_bins, max_chunks) int64
+    k: torch.Tensor  # mean |k| per bin, float32
+    nmodes: torch.Tensor  # modes per bin, float32
+
+
+_PK_CHUNK = 512
+_PK_BINS: dict = {}
+
+
+def _pk_bins(n: int, device) -> _PkBins:
+    """The binning of :func:`power_spectrum` for grid size n, made on the
+    host once per (n, device)."""
+    key = (n, str(device))
+    if key in _PK_BINS:
+        return _PK_BINS[key]
+    kx, ky, kz = _wavenumbers(n, "cpu")
+    k_norm = torch.sqrt(kx * kx + ky * ky + kz * kz).reshape(-1).numpy()
+    k_index = (k_norm + np.float32(0.5)).astype(np.int64)
+    kmax = int(2 * (n // 2) / 3)
+    modes = np.nonzero((k_index >= 1) & (k_index < kmax))[0]
+    order = modes[np.argsort(k_index[modes], kind="stable")]
+    counts = np.bincount(k_index[order] - 1, minlength=kmax - 1)
+    chunks = -(-counts // _PK_CHUNK)  # ceil
+    first_chunk = np.concatenate(([0], np.cumsum(chunks)[:-1]))
+    n_chunks = int(chunks.sum())
+    slot_src = np.full(n_chunks * _PK_CHUNK, k_norm.size, np.int64)
+    bin_start = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    for c, s0, f0 in zip(counts, bin_start, first_chunk):
+        slot_src[f0 * _PK_CHUNK: f0 * _PK_CHUNK + c] = order[s0: s0 + c]
+    chunk_of_bin = np.full((kmax - 1, int(chunks.max())), n_chunks, np.int64)
+    for b, (c, f0) in enumerate(zip(chunks, first_chunk)):
+        chunk_of_bin[b, :c] = np.arange(f0, f0 + c)
+    bins = _PkBins(torch.as_tensor(slot_src), torch.as_tensor(chunk_of_bin),
+                   None, torch.as_tensor(counts.astype(np.float32)))
+    ksum = _binned_sum(torch.as_tensor(k_norm), bins)
+    bins = bins._replace(k=(ksum / bins.nmodes.double()).to(F32))
+    bins = _PkBins(*(t.to(device) for t in bins))
+    _PK_BINS[key] = bins
+    return bins
+
+
+def _binned_sum(values: torch.Tensor, bins: _PkBins) -> torch.Tensor:
+    """Float64 sum per bin of a flat float32 field, in the fixed order of
+    ``bins``."""
+    zero = values.new_zeros(1, dtype=torch.float64)
+    ext = torch.cat((values.reshape(-1).to(torch.float64), zero))
+    chunk_sums = ext[bins.slot_src].reshape(-1, _PK_CHUNK).sum(1)
+    return torch.cat((chunk_sums, zero))[bins.chunk_of_bin].sum(1)
+
+
 def power_spectrum(xk: torch.Tensor, p: int):
     """Binned power spectrum of an rfft half grid with sinc^-p compensation.
 
     Bins |delta(k)|^2 by round(|k|) up to the Orszag 2/3 Nyquist cutoff
     over the half grid (each mode counted once). Returns (k, Pk, Nmodes)
-    in grid units; the caller applies the box normalisation.
+    in grid units; the caller applies the box normalisation. The sums run
+    in one fixed order (:class:`_PkBins`), so the result is bitwise the
+    same on every run, on the card too.
     """
     n = xk.shape[0]
-    kx, ky, kz = _wavenumbers(n, xk.device)
-    k_norm = torch.sqrt(kx * kx + ky * ky + kz * kz)
-    k_index = (k_norm + 0.5).to(torch.int64)
+    bins = _pk_bins(n, xk.device)
     amp = xk * _sinc_weight(n, xk.device) ** (-p) if p != 0 else xk
     delta2 = amp.real ** 2 + amp.imag ** 2
-    delta2[0, 0, 0] = 0.0
-    idx = k_index.reshape(-1)
-    ones = torch.ones(idx.shape, dtype=F32, device=xk.device)
-    ones[0] = 0.0
-    zeros = torch.zeros(n, dtype=F32, device=xk.device)
-    nmodes = zeros.index_add(0, idx, ones)
-    ksum = zeros.index_add(0, idx, k_norm.reshape(-1) * ones)
-    pksum = zeros.index_add(0, idx, delta2.reshape(-1))
-    sl = slice(1, int(2 * (n // 2) / 3))
-    return ksum[sl] / nmodes[sl], pksum[sl] / nmodes[sl], nmodes[sl]
+    pksum = _binned_sum(delta2, bins)
+    return (bins.k.clone(), (pksum / bins.nmodes.double()).to(F32),
+            bins.nmodes.clone())

@@ -6,6 +6,9 @@ main-path part of ``pysco_tpu/ops/mesh.py``).
   advanced indexing -- the ``particle_engine = scatter`` path. On the
   card ``index_add`` sums with atomics, so its order is not fixed.
 - ``derivative``: 2/3/5/7-point gradient stencils by ``torch.roll``.
+- ``restriction`` / ``prolongation`` / ``add_prolongation``: the
+  multigrid transfer operators; ``add_prolongation`` runs the CUDA kernel
+  of ``ops/stencil.py`` on the card.
 - ``periodic_wrap``: wrap into [0, 1) while keeping the tiled engine's
   sentinel columns (position >= 1.5).
 """
@@ -149,6 +152,51 @@ def derivative(a: torch.Tensor, order: int,
     ``leading=True`` (the layout the tiled gather reads)."""
     return torch.stack([_axis_diff(a, ax, order) for ax in range(3)],
                        dim=0 if leading else -1)
+
+
+# ---------------------------------------------------------------------------
+# Multigrid transfer operators
+# ---------------------------------------------------------------------------
+
+def restriction(x: torch.Tensor) -> torch.Tensor:
+    """Full-weighting restriction: the mean over 2x2x2 children, summed in
+    pairs along z, then y, then x (the order of the fused restriction
+    kernel and of the JAX kernel's pair-sum contractions)."""
+    m = x.shape[0] // 2
+    v = x.reshape(m, 2, m, 2, m, 2)
+    z = v[..., 0] + v[..., 1]
+    y = z[:, :, :, 0] + z[:, :, :, 1]
+    return (y[:, 0] + y[:, 1]) * 0.125
+
+
+def minus_restriction(x: torch.Tensor) -> torch.Tensor:
+    return -restriction(x)
+
+
+def _prolong_axis(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """Double the size along ``axis`` with (3/4, 1/4) trilinear weights:
+    fine 2r = 3/4 x[r] + 1/4 x[r-1], fine 2r+1 = 3/4 x[r] + 1/4 x[r+1]
+    (periodic)."""
+    c = 0.75 * x
+    even = c + 0.25 * torch.roll(x, 1, axis)
+    odd = c + 0.25 * torch.roll(x, -1, axis)
+    return torch.stack((even, odd), dim=axis + 1).flatten(axis, axis + 1)
+
+
+def prolongation(x: torch.Tensor) -> torch.Tensor:
+    """Trilinear prolongation (27-point, weights 27/9/3/1 over 64), the
+    axes in the order 0, 1, 2."""
+    for axis in range(3):
+        x = _prolong_axis(x, axis)
+    return x
+
+
+def add_prolongation(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y + prolongation(x): the CUDA kernel on the card, the plain form on
+    the CPU (ops/stencil.py)."""
+    from . import stencil
+
+    return stencil.add_prolongation(y, x)
 
 
 # ---------------------------------------------------------------------------

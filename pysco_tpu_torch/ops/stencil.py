@@ -1,0 +1,331 @@
+"""Multigrid stencil kernels: the red-black half-sweep, the residual norm,
+the fused restriction and the prolongation (the PyTorch/CUDA counterpart
+of ``pysco_tpu/ops/pallas_stencil.py``, which it replaces for the linear
+Poisson operator and the residual kinds).
+
+Each kernel is hand-written CUDA (``csrc/half_sweep.cu``,
+``csrc/residual.cu``, ``csrc/prolongation.cu``) with a plain PyTorch
+twin beside it of the same signature (``*_plain``). A wrapper takes the
+twin for a CPU tensor and launches the kernel for a CUDA tensor, at every
+grid size (the multigrid levels go down to 4^3); there is no fallback
+from one to the other. ``LAUNCHES`` counts kernel launches.
+
+The stencil primitives the twins are written in -- the full-lattice
+``neighbour_sum`` and the packed red-black ``packed_neighbour_sum`` --
+live here too; ``models/laplacian.py`` uses them under the JAX package's
+names. Every expression keeps the JAX package's operand order and its
+float32 constants (``np.float32(1/6)``, ``np.float32(1/(n*n))``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+
+import numpy as np
+import torch
+
+from .mesh import prolongation, restriction
+
+F32 = torch.float32
+
+# kernel launches by the CUDA wrappers (one per wrapper call); the CPU
+# twins do not count
+LAUNCHES = {"half_sweep": 0, "residual_norm2": 0, "restrict3": 0,
+            "add_prolongation": 0}
+
+#: residual kind -> (kernel enum, neighbour power, needs b); the kinds of
+#: pysco_tpu/ops/pallas_stencil.py _KINDS
+_KINDS = {
+    "linear": (0, 1, True),        # b - L(x)                (laplacian.residual)
+    "laplacian": (1, 1, False),    # L(x)                    (truncation_error)
+    "reformulated": (2, 1, True),  # x + (h^2 b - S)/6       (operator_reformulated)
+    "cubic": (3, 2, True),         # x^3 + p x + q h^2       (f(R) n = 1)
+    "quartic": (4, 3, True),       # x^4 + p x + q h^2       (f(R) n = 2)
+}
+
+_INVSIX = float(np.float32(1.0 / 6.0))
+_MAX_N = 1024  # the kernels index with 32-bit ints: n^3 < 2^31
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _h2(n: int) -> float:
+    return _f32(1.0 / (n * n))
+
+
+# ---------------------------------------------------------------------------
+# Stencil primitives (pysco_tpu/models/laplacian.py)
+# ---------------------------------------------------------------------------
+
+def neighbour_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum of the 6 periodic neighbours, in the order x-, x+, y-, y+, z-,
+    z+."""
+    return (torch.roll(x, 1, 0) + torch.roll(x, -1, 0)
+            + torch.roll(x, 1, 1) + torch.roll(x, -1, 1)
+            + torch.roll(x, 1, 2) + torch.roll(x, -1, 2))
+
+
+def _parity_ik(n: int, device) -> torch.Tensor:
+    """s(i,k) = (i+k) & 1 as a bool (n, 1, n) mask (True where s == 1)."""
+    i = torch.arange(n, device=device)
+    return (((i[:, None, None] + i[None, None, :]) & 1) == 1)
+
+
+def packed_neighbour_sum(src: torch.Tensor, to_red: bool) -> torch.Tensor:
+    """Sum of the 6 stencil neighbours of each ``to_red`` (else black) cell,
+    read from the opposite-colour half-lattice ``src``: x and z neighbours
+    at the same packed index, the two y neighbours ``src`` itself and one
+    y-roll, which one is y- depending on s(i,k). Same order as
+    :func:`neighbour_sum`."""
+    s1 = _parity_ik(src.shape[0], src.device)
+    down = torch.roll(src, 1, 1)
+    up = torch.roll(src, -1, 1)
+    if to_red:
+        ym = torch.where(s1, down, src)
+        yp = torch.where(s1, src, up)
+    else:
+        ym = torch.where(s1, src, down)
+        yp = torch.where(s1, up, src)
+    return (torch.roll(src, 1, 0) + torch.roll(src, -1, 0) + ym + yp
+            + torch.roll(src, 1, 2) + torch.roll(src, -1, 2))
+
+
+def _power(x: torch.Tensor, power: int) -> torch.Tensor:
+    if power == 2:
+        return x * x
+    if power == 3:
+        return x * x * x
+    return x
+
+
+def residual_plain(kind: str, x, b=None, rhs=None, q=None) -> torch.Tensor:
+    """The per-cell residual of ``kind`` (``pallas_stencil._residual_block``
+    on the full lattice); with ``rhs`` it is rhs - op."""
+    _, power, _ = _KINDS[kind]
+    n = x.shape[0]
+    S = neighbour_sum(_power(x, power))
+    h2 = _h2(n)
+    if kind == "linear":
+        r = b - (S - 6.0 * x) * float(n * n)
+    elif kind == "laplacian":
+        r = (S - 6.0 * x) * float(n * n)
+    elif kind == "reformulated":
+        r = x + _INVSIX * (h2 * b - S)
+    else:
+        p = h2 * b - _INVSIX * S
+        qh2 = _f32(np.float32(q) * np.float32(h2))
+        if kind == "cubic":
+            r = x * x * x + p * x + qh2
+        else:
+            x2 = x * x
+            r = x2 * x2 + p * x + qh2
+    return r if rhs is None else rhs - r
+
+
+# ---------------------------------------------------------------------------
+# Plain twins of the kernels
+# ---------------------------------------------------------------------------
+
+def half_sweep_plain(src, dst, h2b, to_red: bool, f_relax: float, rhs=None,
+                     neighbour_sum=packed_neighbour_sum) -> torch.Tensor:
+    """Twin of :func:`half_sweep`. ``neighbour_sum`` is the packed
+    neighbour primitive (injectable for other packings)."""
+    tgt = (neighbour_sum(src, to_red) - h2b) * _INVSIX
+    if rhs is not None:
+        tgt = tgt + rhs
+    return dst + _f32(f_relax) * (tgt - dst)
+
+
+def residual_norm2_plain(kind: str, x, b=None, rhs=None,
+                         q=None) -> torch.Tensor:
+    """Twin of :func:`residual_norm2`."""
+    r = residual_plain(kind, x, b, rhs, q)
+    return torch.sum(r * r)
+
+
+def restrict3_plain(kind: str, x, b=None, rhs=None, q=None,
+                    residual_only: bool = False):
+    """Twin of :func:`restrict3`."""
+    out = (restriction(residual_plain(kind, x, b, rhs, q)),)
+    if residual_only:
+        return out
+    out += (restriction(x),)
+    if _KINDS[kind][2]:
+        out += (restriction(b),)
+    return out
+
+
+def add_prolongation_plain(y, x_c) -> torch.Tensor:
+    """Twin of :func:`add_prolongation`."""
+    return y + prolongation(x_c)
+
+
+# ---------------------------------------------------------------------------
+# CUDA wrappers
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _kernels():
+    """The compiled kernel library with the stencil kernels' C signatures
+    (built at first use from ``csrc/``)."""
+    from . import cuda_build
+
+    lib = cuda_build.load()
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.pysco_half_sweep.argtypes = [P, P, P, P, P, I, I, F, P]
+    lib.pysco_norm2_blocks.argtypes = [I]
+    lib.pysco_residual_norm2.argtypes = [I, P, P, P, I, F, F, F, P, P, P]
+    lib.pysco_restrict3.argtypes = [I, P, P, P, I, F, F, F, P, P, P, P]
+    lib.pysco_add_prolongation.argtypes = [P, P, P, I, P]
+    for fn in (lib.pysco_half_sweep, lib.pysco_norm2_blocks,
+               lib.pysco_residual_norm2, lib.pysco_restrict3,
+               lib.pysco_add_prolongation):
+        fn.restype = I
+    return lib
+
+
+def _on_cuda(name: str, *tensors) -> bool:
+    """False for CPU tensors (the twin runs), True for CUDA tensors (the
+    kernel runs); raises for any other device or a mix."""
+    devs = {t.device.type for t in tensors if t is not None}
+    if devs == {"cpu"}:
+        return False
+    if devs == {"cuda"}:
+        return True
+    raise ValueError(f"{name}: no kernel for devices {sorted(devs)}")
+
+
+def _check(name: str, t, shape) -> None:
+    if t is None:
+        return
+    if t.dtype != F32 or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous CUDA float32 "
+                         f"tensor, got {t.dtype} on {t.device}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def _check_n(name: str, n: int) -> None:
+    if n % 2 or not 2 <= n <= _MAX_N:
+        raise ValueError(f"{name}: grid size {n} must be even and at most "
+                         f"{_MAX_N}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"{what} kernel failed: CUDA error {err}")
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def half_sweep(src, dst, h2b, to_red: bool, f_relax: float, rhs=None):
+    """One colour half of a packed red-black Gauss-Seidel sweep on
+    (n, n/2, n) half-lattices: dst + f_relax ((sum_nb(src) - h2b)/6
+    [+ rhs] - dst), the ``to_red`` colour (else black) updated from the
+    other colour ``src``."""
+    if not _on_cuda("half_sweep", src, dst, h2b, rhs):
+        return half_sweep_plain(src, dst, h2b, to_red, f_relax, rhs)
+    n = src.shape[0]
+    _check_n("half_sweep", n)
+    shape = (n, n // 2, n)
+    for name, t in (("src", src), ("dst", dst), ("h2b", h2b), ("rhs", rhs)):
+        _check(f"half_sweep {name}", t, shape)
+    out = torch.empty_like(dst)
+    err = _kernels().pysco_half_sweep(
+        src.data_ptr(), dst.data_ptr(), h2b.data_ptr(), _ptr(rhs),
+        out.data_ptr(), n, int(bool(to_red)), _f32(f_relax), _stream(out))
+    _raise_on(err, "half_sweep")
+    LAUNCHES["half_sweep"] += 1
+    return out
+
+
+def _kind_args(kind: str, x, b, q):
+    if kind not in _KINDS:
+        raise ValueError(f"residual kind {kind!r}, should be one of "
+                         f"{tuple(_KINDS)}")
+    code, _, needs_b = _KINDS[kind]
+    if needs_b and b is None:
+        raise ValueError(f"residual kind {kind!r} needs b")
+    if kind in ("cubic", "quartic") and q is None:
+        raise ValueError(f"residual kind {kind!r} needs q")
+    n = x.shape[0]
+    _check_n(kind, n)
+    for name, t in (("x", x), ("b", b if needs_b else None)):
+        _check(f"{kind} {name}", t, (n, n, n))
+    q = 0.0 if q is None else _f32(q)
+    return code, needs_b, n, float(n * n), _h2(n), q
+
+
+def residual_norm2(kind: str, x, b=None, rhs=None, q=None) -> torch.Tensor:
+    """Sum of squares of the ``kind`` residual over the (n, n, n) lattice
+    (rhs - op with ``rhs``), a 0-dim float32 tensor on x's device. On the
+    card the sum has one fixed order: two calls are bitwise equal."""
+    if not _on_cuda("residual_norm2", x, b, rhs):
+        return residual_norm2_plain(kind, x, b, rhs, q)
+    code, needs_b, n, n2, h2, qf = _kind_args(kind, x, b, q)
+    _check("residual_norm2 rhs", rhs, (n, n, n))
+    lib = _kernels()
+    partial = torch.empty(lib.pysco_norm2_blocks(n), dtype=torch.float64,
+                          device=x.device)
+    out = torch.empty((), dtype=F32, device=x.device)
+    err = lib.pysco_residual_norm2(
+        code, x.data_ptr(), _ptr(b if needs_b else None), _ptr(rhs), n, n2,
+        h2, qf, partial.data_ptr(), out.data_ptr(), _stream(out))
+    _raise_on(err, "residual_norm2")
+    LAUNCHES["residual_norm2"] += 1
+    return out
+
+
+def restrict3(kind: str, x, b=None, rhs=None, q=None,
+              residual_only: bool = False):
+    """One pass over the fine (n, n, n) lattice: (R(r), R(x)[, R(b)]) with
+    R the 2x2x2 mean and r the ``kind`` residual (rhs - op with ``rhs``);
+    R(b) for the kinds that read b. ``residual_only`` returns (R(r),) and
+    writes nothing else."""
+    if not _on_cuda("restrict3", x, b, rhs):
+        return restrict3_plain(kind, x, b, rhs, q, residual_only)
+    code, needs_b, n, n2, h2, qf = _kind_args(kind, x, b, q)
+    _check("restrict3 rhs", rhs, (n, n, n))
+    m = n // 2
+    n_out = 1 if residual_only else 2 + int(needs_b)
+    outs = tuple(torch.empty((m, m, m), dtype=F32, device=x.device)
+                 for _ in range(n_out))
+    ptrs = [o.data_ptr() for o in outs] + [None] * (3 - n_out)
+    err = _kernels().pysco_restrict3(
+        code, x.data_ptr(), _ptr(b if needs_b else None), _ptr(rhs), n, n2,
+        h2, qf, *ptrs, _stream(outs[0]))
+    _raise_on(err, "restrict3")
+    LAUNCHES["restrict3"] += 1
+    return outs
+
+
+def add_prolongation(y, x_c) -> torch.Tensor:
+    """y + the trilinear prolongation of the coarse x_c, (n, n, n) +
+    (n/2, n/2, n/2) -> (n, n, n)."""
+    if not _on_cuda("add_prolongation", y, x_c):
+        return add_prolongation_plain(y, x_c)
+    n = y.shape[0]
+    _check_n("add_prolongation", n)
+    _check("add_prolongation y", y, (n, n, n))
+    _check("add_prolongation x_c", x_c, (n // 2,) * 3)
+    out = torch.empty_like(y)
+    err = _kernels().pysco_add_prolongation(
+        y.data_ptr(), x_c.data_ptr(), out.data_ptr(), n, _stream(out))
+    _raise_on(err, "add_prolongation")
+    LAUNCHES["add_prolongation"] += 1
+    return out

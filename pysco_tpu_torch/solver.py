@@ -1,24 +1,28 @@
 """Particle-mesh force solver (PyTorch port of ``pysco_tpu/solver.py``).
 
-One force evaluation: tile sort (or a stale-bin step), deposit, Poisson
-solve in Fourier space, gradient stencil, gather. The JAX package traces
+One force evaluation: tile sort (or a stale-bin step), deposit, the
+theory's extra field and Poisson source, the Poisson solve (in Fourier
+space or by multigrid), gradient stencil, gather. The JAX package traces
 it into one XLA program; here it runs eagerly on the device of the
-particle tensors. Per-step scalars (aexp, the parametrized mu(z)) are
-computed on the host in float64 and enter the device arithmetic as
-float32 values.
+particle tensors. Per-step scalars (aexp, the parametrized mu(z), the
+tolerance factor, MOND's g0 in box units, the growth rescaling of the
+previous potential) are computed on the host in float64 and enter the
+device arithmetic as float32 values.
 
 Conventions identical to the JAX package and the reference:
 - density grids hold particle counts normalised to mean 1;
-- the Poisson rhs is 1.5 * aexp * Om_m * mu(z) * (delta - 1);
+- the Poisson rhs is 1.5 * aexp * Om_m * mu(z) * (delta - 1); MOND's is
+  the QUMOND source of the Newtonian potential;
 - the "acceleration" is +grad(phi); the kick subtracts it.
 
-This slice carries the Newtonian and parametrized theories with the FFT
-solvers (``fft``, ``fft_7pt``, ``full_fft``); multigrid, f(R) and QUMOND
-come with the ROADMAP's slice 2.
+Theories: newton, parametrized and mond; solvers: fft, fft_7pt,
+full_fft and multigrid (V, F or W cycles). f(R) comes with the
+ROADMAP's f(R) slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import NamedTuple
@@ -26,17 +30,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .models import laplacian, mond, multigrid
 from .ops import fourier, mesh, tiled_pm
 
 F32 = torch.float32
 
-_THEORIES = ("newton", "parametrized")
-_SOLVERS = ("fft", "fft_7pt", "full_fft")
+_THEORIES = ("newton", "parametrized", "mond")
+_SOLVERS = ("fft", "fft_7pt", "full_fft", "multigrid")
 # accepted for parity with the JAX package's configs; they select TPU
 # matrix-unit passes there, and this port computes in float32 throughout
 _PM_PRECISIONS = ("f32", "bf16", "bf16x3", "bf16-gather")
-_SLICE2 = ("ROADMAP.md Queue 1 slice 2 (multigrid, f(R) and QUMOND) "
-           "brings it")
+_FR_SLICE = ("ROADMAP.md Queue 1 item 10 (the f(R) slice: scalaron "
+             "sweep kernel, cubic/quartic models) brings it")
 
 
 @dataclass(frozen=True)
@@ -49,6 +54,12 @@ class SolverConfig:
     mass_scheme: str
     linear_newton_solver: str
     gradient_stencil_order: int
+    Npre: int = 2
+    Npost: int = 1
+    # multigrid cycle type for the linear solves: V, F or W
+    multigrid_cycle: str = "V"
+    mond_function: str = "simple"
+    mond_alpha: float = 1.0
     # "pallas": tile-sorted column state through ops/tiled_pm.py (the
     # CUDA kernels on the card); "scatter": row particles through the
     # index_add deposit of ops/mesh.py
@@ -76,22 +87,41 @@ def config_from_param(param) -> SolverConfig:
         mass_scheme=str(param["mass_scheme"]).casefold(),
         linear_newton_solver=str(param["linear_newton_solver"]).casefold(),
         gradient_stencil_order=int(param["gradient_stencil_order"]),
+        Npre=int(get("Npre", 2)),
+        Npost=int(get("Npost", 1)),
+        multigrid_cycle=str(get("multigrid_cycle", "V")).upper(),
+        mond_function=str(get("mond_function", "simple")).casefold(),
+        mond_alpha=float(get("mond_alpha", 1.0)),
         particle_engine=str(get("particle_engine", "pallas")).casefold(),
         pm_precision=str(get("pm_precision", "bf16x3")).casefold(),
         pm_precision_widened=str(
             get("pm_precision_widened", "bf16-gather")).casefold(),
         lazy_drift=int(get("lazy_drift", 3)),
     )
-    if cfg.theory not in _THEORIES:
+    if cfg.theory == "fr":
         raise NotImplementedError(
             f"theory={cfg.theory!r}: the PyTorch port runs {_THEORIES}; "
-            + _SLICE2
+            + _FR_SLICE
+        )
+    if cfg.theory not in _THEORIES:
+        raise NotImplementedError(
+            f"theory {cfg.theory!r}, should be newton, parametrized, mond "
+            "or fr"
         )
     if cfg.linear_newton_solver not in _SOLVERS:
         raise NotImplementedError(
-            f"linear_newton_solver={cfg.linear_newton_solver!r}: the "
-            f"PyTorch port runs {_SOLVERS}; " + _SLICE2
+            f"linear_newton_solver {cfg.linear_newton_solver!r}, should be "
+            "multigrid, fft, fft_7pt or full_fft"
         )
+    if cfg.theory == "mond" and cfg.linear_newton_solver not in (
+            "multigrid", "fft_7pt"):
+        raise NotImplementedError(
+            "MOND additional field requires multigrid or fft_7pt "
+            f"(got {cfg.linear_newton_solver!r})"
+        )
+    if cfg.multigrid_cycle not in ("V", "F", "W"):
+        raise ValueError(f"multigrid_cycle={cfg.multigrid_cycle!r}, should "
+                         "be V, F or W")
     if cfg.mass_scheme not in ("ngp", "cic", "tsc"):
         raise NotImplementedError(
             f"mass scheme {cfg.mass_scheme!r}, should be NGP, CIC or TSC"
@@ -113,7 +143,10 @@ class DynScalars(NamedTuple):
 
     aexp: float
     om_m: float
-    mu_z: float
+    mu_z: float  # parametrized mu(z); 1 otherwise
+    epsrel: float
+    mond_g0: float
+    potential_scaling: float
 
 
 def _f32(x) -> float:
@@ -121,12 +154,15 @@ def _f32(x) -> float:
 
 
 def compute_dynamics(param) -> DynScalars:
-    """Host-side (float64) per-step scalars; parametrized mu(z) as in
-    ``pysco_tpu.solver.compute_dynamics``."""
+    """Host-side (float64) per-step scalars, as in
+    ``pysco_tpu.solver.compute_dynamics``: parametrized mu(z), MOND's g0
+    converted to box units and scaled by aexp, and the growth rescaling of
+    the previous potential (``potential_scaling``, set by the run loop)."""
     aexp = float(param["aexp"])
     om_m = float(param["Om_m"])
+    theory = str(param["theory"]).casefold()
     mu_z = 1.0
-    if str(param["theory"]).casefold() == "parametrized":
+    if theory == "parametrized":
         w0, wa = float(param["w0"]), float(param["wa"])
         om_lambda = float(param["Om_lambda"])
         om_r = float(param["Om_r"])
@@ -139,16 +175,47 @@ def compute_dynamics(param) -> DynScalars:
                + om_lambda * evolution_term)
         )
         mu_z = 1.0 + float(param["parametrized_mu0"]) * omega_lambda_z / om_lambda
-    return DynScalars(aexp=_f32(aexp), om_m=_f32(om_m), mu_z=_f32(mu_z))
+    mond_g0 = 0.0
+    if theory == "mond":
+        mond_g0 = (
+            float(param["mond_g0"]) * 1e-3 * 1e-10
+            * param["unit_t"] ** 2 / param["unit_l"]
+            * aexp ** (1 + float(param["mond_scale_factor_exponent"]))
+        )
+    get = param.get if hasattr(param, "get") else param.__getitem__
+    return DynScalars(
+        aexp=_f32(aexp), om_m=_f32(om_m), mu_z=_f32(mu_z),
+        epsrel=_f32(get("epsrel", 1e-2)), mond_g0=_f32(mond_g0),
+        potential_scaling=_f32(get("potential_scaling", 1.0)),
+    )
 
 
 # ---------------------------------------------------------------------------
 # Field solve
 # ---------------------------------------------------------------------------
 
-def _linear_solve(cfg: SolverConfig, rhs: torch.Tensor) -> torch.Tensor:
-    """Potential from the Poisson rhs: Jing-compensated continuous inverse
-    Laplacian (``fft``) or the exact discrete 7-point one (``fft_7pt``)."""
+def _multigrid_solve(cfg: SolverConfig, rhs, x, dyn: DynScalars):
+    """Linear multigrid solve of L(x) = rhs from the first guess x, to
+    epsrel times the truncation error of x (recomputed on every solve)."""
+    tolerance = np.float32(dyn.epsrel) * np.float32(
+        float(laplacian.truncation_error(x)))
+    return multigrid.linear(x, rhs, cfg.ncoarse, cfg.Npre, cfg.Npost,
+                            tolerance, cfg.multigrid_cycle)
+
+
+def _linear_solve(cfg: SolverConfig, rhs: torch.Tensor, potential,
+                  dyn: DynScalars, first_call: bool) -> torch.Tensor:
+    """Potential from the Poisson rhs: multigrid from the previous
+    potential (rescaled by the linear growth since its step; a Jacobi
+    first guess on the first call), the Jing-compensated continuous
+    inverse Laplacian (``fft``) or the exact discrete 7-point one
+    (``fft_7pt``)."""
+    if cfg.linear_newton_solver == "multigrid":
+        if first_call:
+            potential = laplacian.initialise_potential(rhs)
+        else:
+            potential = potential * dyn.potential_scaling
+        return _multigrid_solve(cfg, rhs, potential, dyn)
     rhs_k = fourier.rfft3(rhs)
     if cfg.linear_newton_solver == "fft_7pt":
         rhs_k = fourier.inverse_laplacian_7pt(rhs_k)
@@ -165,26 +232,53 @@ def _fft_force(cfg: SolverConfig, rhs: torch.Tensor) -> torch.Tensor:
     return fourier.irfft3_vec(force_k)
 
 
-def _solve_fields(cfg: SolverConfig, save_pk: bool, density, potential,
-                  dyn: DynScalars, leading: bool = False):
+def _newton_rhs(density, dyn: DynScalars):
+    """1.5 aexp Om_m mu(z) (density - 1), the scalar factor formed in
+    float32 first."""
+    f1 = _f32(np.float32(1.5) * np.float32(dyn.aexp) * np.float32(dyn.om_m)
+              * np.float32(dyn.mu_z))
+    return f1 * (density - 1.0)
+
+
+def _additional_field(cfg: SolverConfig, density, u, dyn: DynScalars,
+                      first_call: bool):
+    """The extra field of a modified theory: for MOND, the Newtonian
+    potential (multigrid from the previous u, or the exact 7-point FFT
+    solve)."""
+    if cfg.theory != "mond":
+        return u
+    rhs_newton = _newton_rhs(density, dyn)
+    if cfg.linear_newton_solver == "multigrid":
+        if first_call:
+            u = laplacian.initialise_potential(rhs_newton)
+        return _multigrid_solve(cfg, rhs_newton, u, dyn)
+    return fourier.irfft3(
+        fourier.inverse_laplacian_7pt(fourier.rfft3(rhs_newton)))
+
+
+def _solve_fields(cfg: SolverConfig, first_call: bool, save_pk: bool,
+                  density, potential, u, dyn: DynScalars,
+                  leading: bool = False):
     """Force mesh from the normalised density grid; returns
-    (force, potential, pk). ``leading=True`` lays the force out
+    (force, potential, u, pk). ``leading=True`` lays the force out
     component-leading, (3, M, M, M), as the tiled gather reads it."""
     pk = None
     if save_pk:
         pk = fourier.power_spectrum(fourier.rfft3(density), cfg.mas_index)
-    f1 = _f32(np.float32(1.5) * np.float32(dyn.aexp) * np.float32(dyn.om_m)
-              * np.float32(dyn.mu_z))
-    rhs = f1 * (density - 1.0)
+    u = _additional_field(cfg, density, u, dyn, first_call)
+    if cfg.theory == "mond":
+        rhs = mond.rhs(u, dyn.mond_g0, cfg.mond_function, cfg.mond_alpha)
+    else:
+        rhs = _newton_rhs(density, dyn)
     del density
     if cfg.linear_newton_solver == "full_fft":
         force = _fft_force(cfg, rhs)
         if leading:
             force = force.movedim(-1, 0).contiguous()
-        return force, potential, pk
-    potential = _linear_solve(cfg, rhs)
+        return force, potential, u, pk
+    potential = _linear_solve(cfg, rhs, potential, dyn, first_call)
     force = mesh.derivative(potential, cfg.gradient_stencil_order, leading)
-    return force, potential, pk
+    return force, potential, u, pk
 
 
 def _normalise(cfg: SolverConfig, density: torch.Tensor) -> torch.Tensor:
@@ -194,32 +288,37 @@ def _normalise(cfg: SolverConfig, density: torch.Tensor) -> torch.Tensor:
     return density
 
 
-def pm(cfg: SolverConfig, save_pk: bool, position, velocity, potential, u,
-       dyn: DynScalars):
+def pm(cfg: SolverConfig, first_call: bool, save_pk: bool, position,
+       velocity, potential, u, dyn: DynScalars):
     """Full PM force evaluation with a fresh sort (``pysco_tpu.solver.pm``
-    and its body ``_pm_impl``).
+    and its body ``_pm_impl``). ``first_call`` starts the multigrid solves
+    from a Jacobi guess instead of the previous fields.
 
     Returns (position, velocity, acceleration, potential, u, pk, overflow).
     The tiled engine takes the particles in (4, N_up) column layout
     (``tiled_pm.to_columns`` or :func:`state_from_arrays` make it from
-    rows) and returns them tile-sorted, velocity riding along. The
-    scatter engine keeps (npart, 3) rows in their order.
+    rows) and returns them tile-sorted, velocity riding along (None is
+    zero velocity). The scatter engine keeps (npart, 3) rows in their
+    order.
     """
     n = cfg.ncells_1d
+    if velocity is None:
+        velocity = torch.zeros_like(position)
     if cfg.particle_engine == "pallas":
         position, velocity, tstarts = tiled_pm.sort_particles(
             position, velocity, n, cfg.mass_scheme
         )
         density = _normalise(cfg, tiled_pm.deposit(
             position, tstarts, n, cfg.mass_scheme))
-        force, potential, pk = _solve_fields(cfg, save_pk, density,
-                                             potential, dyn, leading=True)
+        force, potential, u, pk = _solve_fields(
+            cfg, first_call, save_pk, density, potential, u, dyn,
+            leading=True)
         acceleration = tiled_pm.gather_vec_cl(force, position, tstarts,
                                               cfg.mass_scheme)
     else:
         density = _normalise(cfg, mesh.deposit(position, n, cfg.mass_scheme))
-        force, potential, pk = _solve_fields(cfg, save_pk, density,
-                                             potential, dyn)
+        force, potential, u, pk = _solve_fields(
+            cfg, first_call, save_pk, density, potential, u, dyn)
         acceleration = mesh.gather_vec(force, position, cfg.mass_scheme)
     overflow = 0  # a fresh sort puts every particle in its window
     return position, velocity, acceleration, potential, u, pk, overflow
@@ -234,7 +333,8 @@ def _pm_lazy_impl(cfg: SolverConfig, presorted: int, save_pk: bool,
     windows over the stale tiles, exact while every particle moved less
     than k cells since the sort (the run loop bounds that on the host);
     ``overflow`` counts the particles that broke the bound.
-    ``presorted = 0`` re-sorts. Returns (position, velocity, tstarts,
+    ``presorted = 0`` re-sorts. Never a first call: the multigrid solves
+    start from the previous fields. Returns (position, velocity, tstarts,
     acceleration, potential, u, pk, overflow).
     """
     n = cfg.ncells_1d
@@ -251,12 +351,38 @@ def _pm_lazy_impl(cfg: SolverConfig, presorted: int, save_pk: bool,
         overflow = 0
     density = _normalise(cfg, tiled_pm.deposit(position, tstarts, n, scheme,
                                                drift))
-    force, potential, pk = _solve_fields(cfg, save_pk, density, potential,
-                                         dyn, leading=True)
+    force, potential, u, pk = _solve_fields(cfg, False, save_pk, density,
+                                            potential, u, dyn, leading=True)
     acceleration = tiled_pm.gather_vec_cl(force, position, tstarts, scheme,
                                           drift)
     return (position, velocity, tstarts, acceleration, potential, u, pk,
             overflow)
+
+
+def force_3d(rhs, param) -> torch.Tensor:
+    """Library utility: solve the Poisson equation for a given rhs grid
+    and return the force mesh (N, N, N, 3), with no mass-assignment
+    compensation (``pysco_tpu.solver.force_3d``): multigrid (V cycles
+    from a Jacobi guess), fft, fft_7pt or full_fft."""
+    cfg = dataclasses.replace(config_from_param(param), mass_scheme="ngp")
+    rhs = torch.as_tensor(rhs).to(F32)
+    solver = cfg.linear_newton_solver
+    dyn = compute_dynamics(param)
+    if solver == "multigrid":
+        potential = _multigrid_solve(
+            dataclasses.replace(cfg, multigrid_cycle="V"), rhs,
+            laplacian.initialise_potential(rhs), dyn)
+    elif solver == "full_fft":
+        return fourier.irfft3_vec(
+            fourier.gradient_inverse_laplacian(fourier.rfft3(rhs)))
+    else:
+        rhs_k = fourier.rfft3(rhs)
+        if solver == "fft_7pt":
+            rhs_k = fourier.inverse_laplacian_7pt(rhs_k)
+        else:
+            rhs_k = fourier.inverse_laplacian(rhs_k)
+        potential = fourier.irfft3(rhs_k)
+    return mesh.derivative(potential, cfg.gradient_stencil_order)
 
 
 # ---------------------------------------------------------------------------
@@ -279,10 +405,12 @@ def particles_to_rows(cfg: SolverConfig, *arrays):
 
 def empty_fields(cfg: SolverConfig, device):
     """Potential and additional-field grids before the first call; the
-    Newtonian theories have no additional field, so ``u`` is a token."""
+    Newtonian theories have no additional field, so their ``u`` is a
+    token, and MOND's is its Newtonian potential, a full grid."""
     n = cfg.ncells_1d
+    u_shape = (n, n, n) if cfg.theory == "mond" else (1, 1, 1)
     return (torch.zeros((n, n, n), dtype=F32, device=device),
-            torch.zeros((1, 1, 1), dtype=F32, device=device))
+            torch.zeros(u_shape, dtype=F32, device=device))
 
 
 def state_from_arrays(cfg: SolverConfig, position, velocity, tstarts,
@@ -291,7 +419,8 @@ def state_from_arrays(cfg: SolverConfig, position, velocity, tstarts,
 
     ``position``/``velocity`` are (4, N_up) columns or (npart, 3) rows
     (rows become columns for the tiled engine); ``tstarts`` may be None
-    (a sort comes first). Returns (position, velocity, tstarts,
+    (a sort comes first); ``potential`` and ``u`` are the JAX package's
+    fields (MOND's ``u`` a full grid). Returns (position, velocity, tstarts,
     potential, u).
     """
     position = np.asarray(position, np.float32)

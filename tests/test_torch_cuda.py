@@ -1,5 +1,6 @@
 """The port's CUDA kernels on a card: each against its plain PyTorch twin,
-bitwise-reproducible deposits, and a bitwise-reproducible run.
+bitwise-reproducible deposits, residual norms and P(k), and
+bitwise-reproducible runs (FFT and multigrid).
 
 Every test here carries the ``cuda`` marker and skips where torch sees no
 CUDA device (the kernels have no CPU mode). The file imports no JAX, so it
@@ -19,7 +20,8 @@ import torch
 
 import pysco_tpu_torch
 from pysco_tpu_torch.cosmo import write_power_spectrum_table
-from pysco_tpu_torch.ops import tiled_pm
+from pysco_tpu_torch.models import laplacian
+from pysco_tpu_torch.ops import fourier, stencil, tiled_pm
 from pysco_tpu_torch.ops.mesh import periodic_wrap
 from pysco_tpu_torch.utils import io as iostream
 
@@ -137,3 +139,128 @@ def test_run_reproducible_and_golden(cuda, tmp_path):
         sel = ref[:, 2] >= 8
         rel = np.abs(got[sel, 1] - ref[sel, 1]) / ref[sel, 1]
         assert rel.max() < 1e-4, (name, rel.max())
+
+
+# ---------------------------------------------------------------------------
+# Multigrid stencil kernels
+# ---------------------------------------------------------------------------
+
+KINDS = [("linear", None), ("laplacian", None), ("reformulated", None),
+         ("cubic", -0.27), ("quartic", -0.27)]
+
+
+def _grids(n, seed, device):
+    rng = np.random.default_rng(seed)
+    x, b, rhs = (torch.as_tensor(rng.standard_normal((n, n, n)).astype(
+        np.float32) * s, device=device) for s in (1.0, 5.0, 0.3))
+    return x, b, rhs
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("n", [4, 16, 32])
+def test_half_sweep_matches_twin(cuda, n):
+    x, b, rhs = _grids(n, 1, cuda)
+    red, black = laplacian.pack_rb(x)
+    h2b = laplacian.pack_rb(b * float(np.float32(1 / (n * n))))
+    rhs_p = laplacian.pack_rb(rhs)
+    for to_red, c in ((True, 0), (False, 1)):
+        src, dst = (black, red) if to_red else (red, black)
+        for r in (None, rhs_p[c]):
+            before = stencil.LAUNCHES["half_sweep"]
+            got = stencil.half_sweep(src, dst, h2b[c], to_red, 1.25, r)
+            assert stencil.LAUNCHES["half_sweep"] == before + 1
+            want = stencil.half_sweep_plain(src, dst, h2b[c], to_red, 1.25,
+                                            r)
+            # the same operations in the same order (--fmad=false)
+            assert _rel(got, want) <= 2e-6
+
+
+@pytest.mark.parametrize("kind,q", KINDS)
+def test_residual_kernels_match_twins(cuda, kind, q):
+    for n in (4, 16, 32):
+        x, b, rhs = _grids(n, 2, cuda)
+        b = None if kind == "laplacian" else b
+        for r in (None, rhs):
+            got = stencil.residual_norm2(kind, x, b, r, q)
+            want = stencil.residual_norm2_plain(kind, x, b, r, q)
+            assert abs(float(got) - float(want)) <= 5e-6 * float(want)
+            # fixed-order sum: two calls are bitwise equal
+            assert torch.equal(got, stencil.residual_norm2(kind, x, b, r, q))
+            outs = stencil.restrict3(kind, x, b, r, q)
+            twins = stencil.restrict3_plain(kind, x, b, r, q)
+            assert len(outs) == len(twins)
+            for o, t in zip(outs, twins):
+                assert _rel(o, t) <= 2e-6
+            (only,) = stencil.restrict3(kind, x, b, r, q, residual_only=True)
+            assert torch.equal(only, outs[0])
+
+
+@pytest.mark.parametrize("n", [4, 16, 32])
+def test_add_prolongation_matches_twin(cuda, n):
+    y, xc, _ = _grids(n, 3, cuda)
+    xc = xc[: n // 2, : n // 2, : n // 2].contiguous()
+    got = stencil.add_prolongation(y, xc)
+    assert _rel(got, stencil.add_prolongation_plain(y, xc)) <= 2e-6
+
+
+def test_stencil_wrappers_check_inputs(cuda):
+    x, b, _ = _grids(8, 4, cuda)
+    with pytest.raises(ValueError, match="contiguous CUDA"):
+        stencil.residual_norm2("linear", x.double(), b)
+    with pytest.raises(ValueError, match="expected shape"):
+        stencil.add_prolongation(x, x)
+    with pytest.raises(ValueError, match="needs b"):
+        stencil.restrict3("linear", x)
+    with pytest.raises(ValueError, match="no kernel"):
+        stencil.restrict3("linear", x, b.cpu())
+
+
+def test_power_spectrum_bitwise(cuda):
+    x, _, _ = _grids(64, 5, cuda)
+    xk = fourier.rfft3(1.0 + 0.3 * x)
+    a = fourier.power_spectrum(xk, 2)
+    again = fourier.power_spectrum(xk, 2)
+    for u, v in zip(a, again):
+        assert torch.equal(u, v)
+    twin = fourier.power_spectrum(xk.cpu(), 2)
+    for u, v in zip(a, twin):
+        torch.testing.assert_close(u.cpu(), v, rtol=1e-5, atol=0)
+
+
+def test_multigrid_run_reproducible(cuda, tmp_path):
+    """A newton multigrid run twice on the card: bitwise-equal final
+    snapshots and P(k), the stencil kernels launched on every step."""
+    pk_file = tmp_path / "pk.dat"
+    write_power_spectrum_table(str(pk_file))
+    param = {
+        "theory": "newton", "H0": 72, "Om_m": 0.25733, "T_cmb": 2.726,
+        "N_eff": 3.044, "w0": -1.0, "wa": 0.0, "boxlen": 100,
+        "ncoarse": 5, "npart": 32 ** 3, "z_start": 49, "seed": 42,
+        "position_ICS": "center", "fixed_ICS": False, "paired_ICS": False,
+        "dealiased_ICS": False, "power_spectrum_file": str(pk_file),
+        "initial_conditions": "2LPT", "output_snapshot_format": "npz",
+        "z_out": "[10]", "save_power_spectrum": "yes",
+        "integrator": "leapfrog", "mass_scheme": "TSC", "Courant_factor": 1.0,
+        "max_aexp_stepping": 10, "linear_newton_solver": "multigrid",
+        "gradient_stencil_order": 5, "verbose": 0,
+    }
+    outs = []
+    for tag in ("a", "b"):
+        base = tmp_path / tag
+        stencil.reset_launches()
+        recs = pysco_tpu_torch.run(dict(param, base=str(base)), device="cuda")
+        prev = 0
+        for r in recs:
+            assert r.launches["half_sweep"] > prev
+            prev = r.launches["half_sweep"]
+        snap = iostream.read_snapshot_particles_npz(
+            glob.glob(f"{base}/output_00001/particles_*.npz")[0])
+        pks = [np.loadtxt(f) for f in sorted(glob.glob(f"{base}/power/*"))]
+        outs.append((snap, pks))
+    for x, y in zip(outs[0][0], outs[1][0]):
+        np.testing.assert_array_equal(x, y)
+    for x, y in zip(outs[0][1], outs[1][1]):
+        np.testing.assert_array_equal(x, y)

@@ -122,10 +122,18 @@ def _e2e_param(tmp_path, tag, **kw):
     ("newton_euler", {"integrator": "euler", "linear_newton_solver": "fft"}),
     ("parametrized", {"theory": "parametrized",
                       "linear_newton_solver": "fft"}),
+    ("newton_multigrid_tsc_2lpt", {"linear_newton_solver": "multigrid"}),
+    ("mond_multigrid", {"theory": "mond",
+                        "linear_newton_solver": "multigrid"}),
+    ("mond_fft7pt", {"theory": "mond", "linear_newton_solver": "fft_7pt"}),
+    ("parametrized_multigrid_f", {"theory": "parametrized",
+                                  "linear_newton_solver": "multigrid",
+                                  "multigrid_cycle": "F"}),
 ])
 def test_e2e_rows_match_jax(tmp_path, name, overrides):
-    """The Newtonian/parametrized rows of tests/test_e2e.py through both
-    packages (default tiled engine, lazy re-binning on)."""
+    """The Newtonian, parametrized and QUMOND rows of tests/test_e2e.py
+    through both packages (default tiled engine, lazy re-binning on), and
+    one F-cycle multigrid row."""
     pj = _e2e_param(tmp_path, "jax", **overrides)
     pt = _e2e_param(tmp_path, "torch", **overrides)
     pysco_tpu.run(pj)

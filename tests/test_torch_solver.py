@@ -11,6 +11,8 @@ import jax.numpy as jnp
 from pysco_tpu import solver as jsolver
 from pysco_tpu.ops import pallas_pm
 from pysco_tpu_torch import solver
+from pysco_tpu_torch.models import multigrid
+from pysco_tpu_torch.utils.units import set_units
 
 torch.set_num_threads(1)
 
@@ -26,8 +28,11 @@ def _param(**kw):
         "Om_m": 0.3, "Om_lambda": 0.7, "Om_r": 8e-5, "w0": -1.0,
         "wa": 0.0, "parametrized_mu0": -0.1, "epsrel": 1e-2,
         "particle_engine": "pallas", "pm_precision_widened": "bf16x3",
+        "mond_g0": 1.2, "mond_scale_factor_exponent": 0.0, "H0": 72.0,
+        "boxlen": 100.0,
     }
     p.update(kw)
+    set_units(p)  # unit_t and unit_l: MOND's g0 in box units
     return p
 
 
@@ -70,7 +75,8 @@ def test_pm_matches(engine, solver_name, theory):
     cfg = solver.config_from_param(param)
     p, v, _, phi, u = solver.state_from_arrays(
         cfg, pos, vel, None, np.array(phi0), np.array(u0), "cpu")
-    out = solver.pm(cfg, True, p, v, phi, u, solver.compute_dynamics(param))
+    out = solver.pm(cfg, True, True, p, v, phi, u,
+                    solver.compute_dynamics(param))
     pj, vj, aj = jsolver.particles_to_rows(cfg_j, out_j[0], out_j[1],
                                            out_j[2])
     pt, vt, at = solver.particles_to_rows(cfg, out[0], out[1], out[2])
@@ -124,6 +130,80 @@ def test_pm_lazy_matches(presorted):
     _assert_acc_close(at, aj)
 
 
+@pytest.mark.parametrize("theory,cycle", [("newton", "V"),
+                                          ("parametrized", "F"),
+                                          ("mond", "V"), ("mond", "W")])
+def test_pm_multigrid_matches(theory, cycle):
+    """A first call (Jacobi first guesses) and a second call from the
+    first call's fields rescaled by potential_scaling, through both
+    packages: the same V/F/W solves on the same density."""
+    param = _param(linear_newton_solver="multigrid", theory=theory,
+                   multigrid_cycle=cycle, mond_g0=30.0)
+    pos, vel = _rows(6)
+    cfg_j = jsolver.config_from_param(param)
+    cfg = solver.config_from_param(param)
+    phi0, u0 = jsolver.empty_fields(cfg_j)
+    p, v, _, phi, u = solver.state_from_arrays(
+        cfg, pos, vel, None, np.array(phi0), np.array(u0), "cpu")
+    assert u.shape == ((N, N, N) if theory == "mond" else (1, 1, 1))
+    state_j = (jnp.asarray(pos), jnp.asarray(vel), phi0, u0)
+    state = (p, v, phi, u)
+    for first_call, scaling in ((True, 1.0), (False, 1.07)):
+        dyn_param = dict(param, potential_scaling=scaling)
+        out_j = jsolver.pm(cfg_j, first_call, False, *state_j,
+                           jsolver.compute_dynamics(dyn_param))
+        out = solver.pm(cfg, first_call, False, *state,
+                        solver.compute_dynamics(dyn_param))
+        # multigrid to epsrel: float32 roundoff through a few cycles
+        for got, want in ((out[3], out_j[3]), (out[4], out_j[4])):
+            want = np.array(want)
+            np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                                       atol=1e-5 * np.abs(want).max())
+        pj, aj = _by_position(*jsolver.particles_to_rows(cfg_j, out_j[0],
+                                                         out_j[2]))
+        pt, at = _by_position(*solver.particles_to_rows(cfg, out[0], out[2]))
+        np.testing.assert_array_equal(pt, pj)
+        _assert_acc_close(at, aj)
+        state_j = (out_j[0], out_j[1], out_j[3], out_j[4])
+        state = (out[0], out[1], out[3], out[4])
+
+
+def test_pm_multigrid_matches_fft7pt():
+    """tests/test_solver_oracle.py's oracle through the port: the
+    multigrid solve and the exact discrete 7-point spectral solve give
+    nearly the same forces (the same discrete operator)."""
+    rng = np.random.default_rng(1)
+    pos = rng.random((N ** 3, 3), dtype=np.float32)
+    accs = {}
+    multigrid.reset_stats()
+    for name in ("multigrid", "fft_7pt"):
+        param = _param(linear_newton_solver=name, epsrel=1e-4)
+        cfg = solver.config_from_param(param)
+        phi, u = solver.empty_fields(cfg, "cpu")
+        p, _, _, _, _ = solver.state_from_arrays(
+            cfg, pos, np.zeros_like(pos), None, phi.numpy(), u.numpy(), "cpu")
+        out = solver.pm(cfg, True, False, p, None, phi, u,
+                        solver.compute_dynamics(param))
+        (accs[name],) = solver.particles_to_rows(cfg, out[2])
+    assert multigrid.STATS["solves"] == 1 and multigrid.STATS["cycles"] > 1
+    scale = np.abs(accs["fft_7pt"]).max()
+    np.testing.assert_allclose(accs["multigrid"], accs["fft_7pt"],
+                               atol=2e-3 * scale)
+
+
+@pytest.mark.parametrize("name", ["multigrid", "fft", "fft_7pt", "full_fft"])
+def test_force_3d_matches(name):
+    rhs = np.random.default_rng(7).standard_normal((N, N, N)).astype(
+        np.float32)
+    rhs -= rhs.mean()
+    param = _param(linear_newton_solver=name)
+    got = solver.force_3d(torch.as_tensor(rhs), param)
+    want = np.array(jsolver.force_3d(jnp.asarray(rhs), param))
+    assert got.shape == (N, N, N, 3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+
+
 def test_state_from_arrays_round_trip():
     cfg = solver.config_from_param(_param())
     pos, vel = _rows(4)
@@ -149,15 +229,25 @@ def test_state_from_arrays_round_trip():
 
 
 def test_unsupported_configs_raise():
-    for kw, what in ((dict(theory="fr"), "slice 2"),
-                     (dict(theory="mond"), "slice 2"),
-                     (dict(linear_newton_solver="multigrid"), "slice 2"),
+    for kw, what in ((dict(theory="fr"), "f\\(R\\) slice"),
+                     (dict(theory="mond", linear_newton_solver="fft"),
+                      "multigrid or fft_7pt"),
+                     (dict(linear_newton_solver="sor"),
+                      "linear_newton_solver"),
                      (dict(particle_engine="dense"), "particle_engine")):
         with pytest.raises(NotImplementedError, match=what):
             solver.config_from_param(_param(**kw))
     with pytest.raises(ValueError, match="pm_precision_widened"):
         solver.config_from_param(_param(pm_precision_widened="fp8"))
+    with pytest.raises(ValueError, match="multigrid_cycle"):
+        solver.config_from_param(_param(multigrid_cycle="X"))
     # the JAX package's precision keys are accepted for config parity
     for mode in ("f32", "bf16", "bf16x3", "bf16-gather"):
         solver.config_from_param(_param(pm_precision=mode,
                                         pm_precision_widened=mode))
+    # multigrid and QUMOND are this port's now
+    for kw in (dict(linear_newton_solver="multigrid", multigrid_cycle="w"),
+               dict(theory="mond", linear_newton_solver="multigrid"),
+               dict(theory="mond", linear_newton_solver="fft_7pt")):
+        cfg = solver.config_from_param(_param(**kw))
+        assert cfg.linear_newton_solver == kw["linear_newton_solver"]
