@@ -12,10 +12,11 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    for NGP/CIC/TSC at drift 0 and 3, uniform and clustered particles, on
    128^3, 256^3 and (z-blocked tiles) 512^3 grids; two deposits must be
    bitwise equal; kernel and twin times at 256^3 particles on 256^3;
-   then the multigrid stencil kernels (half-sweep, residual norm,
-   fused restriction, prolongation) at n = 16, 128, 256 and 512, every
-   residual kind with and without rhs, two residual norms bitwise equal;
-   kernel and twin times at 256^3;
+   then the multigrid stencil kernels (half-sweep, f(R) scalaron
+   half-sweep for n = 1 and 2 with a scalar and a plane coefficient,
+   residual norm, fused restriction, prolongation) at n = 16, 128, 256
+   and 512, every residual kind with and without rhs, two residual norms
+   bitwise equal; kernel and twin times at 256^3;
 4. golden: the full-horizon configuration of
    ``tests/test_full_run_fidelity.py`` through ``pysco_tpu_torch.run``
    must match ``tests/golden_pk_32.json`` within 1e-4; two P(k) of one
@@ -34,9 +35,22 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    2, snapshots and P(k); all six kernels must launch on every step; the
    median step time, the V-cycles per solve and the multigrid
    components' times at 256^3;
-8. QUMOND: multigrid at 128^3 for a few steps.
+8. QUMOND: multigrid at 128^3 for a few steps;
+9. f(R) e2e: the ``fr_n1`` and ``fr_n2`` rows of ``tests/test_e2e.py``
+   (16^3) twice on the card and once on the CPU: bitwise-equal card
+   reruns, P(k) within 1e-4 of the CPU;
+10. the f(R) main path, this slice's: ``fr_n1_cic_multigrid_512`` of
+   ``bench.py``, 512^3 particles on a 512^3 grid, box 500 Mpc/h, CIC,
+   2LPT on the device, V-cycles, lazy re-binning, fR_logfR0 = 5, z = 49
+   -> 20, no initial snapshot; all seven kernels must launch on every
+   step; the median step, V-cycles per FAS and per Poisson solve,
+   mean(u), the device-IC seconds, the peak device memory and the FAS
+   components' times at 512^3;
+11. f(R) n = 2: TSC, multigrid, 256^3 for a few steps.
 
-The last two lines of standard output are the kernels' JSON record and
+The last two lines of standard output are the kernels' JSON record (with
+each kernel's bound: the larger of its bytes over 3.35 TB/s and its
+float32 operations over 67 TFLOP/s, the H100 SXM's published peaks) and
 the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -60,6 +74,8 @@ KERNELS = {
                "pysco_tpu/ops/pallas_pm.py:804"),
     "half_sweep": ("pysco_tpu_torch/csrc/half_sweep.cu",
                    "pysco_tpu/ops/pallas_stencil.py:177"),
+    "scalaron_half_sweep": ("pysco_tpu_torch/csrc/scalaron_sweep.cu",
+                            "pysco_tpu/ops/pallas_stencil.py:205"),
     "residual_norm2": ("pysco_tpu_torch/csrc/residual.cu",
                        "pysco_tpu/ops/pallas_stencil.py:436"),
     "restrict3": ("pysco_tpu_torch/csrc/residual.cu",
@@ -67,9 +83,24 @@ KERNELS = {
     "add_prolongation": ("pysco_tpu_torch/csrc/prolongation.cu",
                          "pysco_tpu/ops/pallas_stencil.py:690"),
 }
+# the kernels of the Newtonian and QUMOND multigrid paths (all but the
+# scalaron sweep)
+POISSON_KERNELS = tuple(k for k in KERNELS if k != "scalaron_half_sweep")
 RESIDUAL_KINDS = (("linear", None), ("laplacian", None),
                   ("reformulated", None), ("cubic", -0.27),
                   ("quartic", -0.27))
+# the H100 SXM's published peaks: HBM bytes/s
+# and float32 operations/s outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+
+
+def bound(nbytes: float, flops: float):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for a call that moves ``nbytes`` and computes ``flops``."""
+    t_b = nbytes / HBM_BYTES_PER_S * 1e3
+    t_f = flops / F32_FLOPS_PER_S * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
 def check(cond, msg: str) -> None:
@@ -218,7 +249,42 @@ def phase_kernels(torch):
             f" deposit {t['deposit']:.3f} ms (twin "
             f"{t['deposit_plain']:.3f}), gather {t['gather']:.3f} ms (twin "
             f"{t['gather_plain']:.3f})")
-    return err, times[("cic", 0)]
+        if (scheme, drift) == ("cic", 0):
+            meta = _particle_meta(torch, tp, ps, ts, field, m, n, t)
+    return err, times[("cic", 0)], meta
+
+
+def _particle_meta(torch, tp, ps, ts, field, m, n, t):
+    """Bounds and the one-call PyTorch yardstick of the CIC deposit and
+    gather at drift 0 (the inputs of their timed calls). Each needs the
+    particles' three position rows once; the deposit writes the grid, the
+    gather reads the three-component field and writes three rows. The
+    operations: 3 axis weights (~5 each) and 8 cells x (2 products + 1
+    sum) for the deposit, 8 cells x 3 components x 2 more for the
+    gather. The library call is ``index_add_`` of the 8 n precomputed
+    CIC (cell, weight) pairs into a zeroed grid: the weights and cells
+    themselves are not timed."""
+    from pysco_tpu_torch.ops import mesh
+
+    real = ps[0] < tp.SENTINEL_MIN
+    rows = ps[:3, real].T.contiguous()
+    cells = m ** 3
+    pos_bytes = 12 * n + ts.numel() * ts.element_size()
+    dep = bound(pos_bytes + 4 * cells, n * (15 + 8 * 3))
+    gat = bound(pos_bytes + field.numel() * 4 + 12 * n,
+                n * (15 + 8 * 3 + 8 * 3 * 2))
+    contribs = mesh._contribs(rows, m, "cic")
+    idx = torch.cat([c[0] for c in contribs])
+    w = torch.cat([c[1] for c in contribs])
+    del contribs, rows
+    lib = time_ms(torch, lambda: torch.zeros(
+        cells, device="cuda").index_add_(0, idx, w))
+    del idx, w
+    log(f"[3 bounds] 256^3 CIC drift 0: deposit bound {dep[0]:.4f} ms "
+        f"({dep[1]}), index_add_ {lib:.3f} ms; gather bound {gat[0]:.4f} "
+        f"ms ({gat[1]})")
+    return {"deposit": {"bound": dep, "library_ms": lib},
+            "gather": {"bound": gat, "library_ms": None}}
 
 
 def _grids(torch, n, gen):
@@ -237,16 +303,62 @@ def _agree(name, got, want, rel, what):
     return err
 
 
+def _scalaron_inputs(torch, np, lap, n, gen):
+    """A well-conditioned scalaron state (tests/test_pallas_stencil.py):
+    u0 ~ 0.2 with |p| << 3 u0^2, so that the Newton root cannot amplify
+    rounding; packed, with h^2 b and the FAS rhs packed too."""
+    u0 = torch.randn((n, n, n), generator=gen, device="cuda").abs() * 0.003
+    u0 += 0.2
+    hb = 0.1 * float(np.float32(1.0 / (n * n))) * torch.randn(
+        (n, n, n), generator=gen, device="cuda") * 5.0
+    rhs = torch.randn((n, n, n), generator=gen, device="cuda")
+    return lap.pack_rb(u0), lap.pack_rb(hb), rhs
+
+
+# (neighbour power, q, FAS rhs scale) of the well-conditioned cases
+SCALARON_CASES = ((2, -0.1, 1e-3), (3, -0.05, 1e-4))
+
+
+def phase_scalaron_kernel(torch, np, lap, st, n, gen):
+    """Kernel 4 against its twin at one size: n = 1 and 2, scalar and
+    plane c0, both colours. Returns the largest |kernel - twin|."""
+    (red, black), hb, rhs = _scalaron_inputs(torch, np, lap, n, gen)
+    worst = 0.0
+    for power, q, scale in SCALARON_CASES:
+        c0 = float(np.float32(np.float32(1.0 / (n * n)) * np.float32(q)))
+        r_p = lap.pack_rb(scale * rhs)
+        for plane in (False, True):
+            for to_red, c in ((True, 0), (False, 1)):
+                src, dst = (black, red) if to_red else (red, black)
+                coef = c0 - r_p[c] if plane else c0
+                got = st.scalaron_half_sweep(src, dst, hb[c], coef, to_red,
+                                             1.25, power)
+                want = st.scalaron_half_sweep_plain(src, dst, hb[c], coef,
+                                                    to_red, 1.25, power)
+                e = _agree("scalaron_half_sweep", got, want, 2e-6,
+                           f"n={n} power={power} plane={plane} "
+                           f"red={to_red}")
+                worst = max(worst, e)
+                log(f"[3 stencil] n={n} scalaron_half_sweep power={power} "
+                    f"plane={int(plane)} red={int(to_red)}: |k-twin| "
+                    f"{e:.2e}, bitwise {int(torch.equal(got, want))}")
+    return worst
+
+
 def phase_stencil_kernels(torch, np):
-    """Kernels 3, 5, 6 and 7 against their twins at the multigrid sizes."""
+    """Kernels 3-7 against their twins at the multigrid sizes."""
     from pysco_tpu_torch.models import laplacian as lap
     from pysco_tpu_torch.ops import stencil as st
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4321)
-    err = dict.fromkeys(("half_sweep", "residual_norm2", "restrict3",
-                         "add_prolongation"), 0.0)
+    err = dict.fromkeys(("half_sweep", "scalaron_half_sweep",
+                         "residual_norm2", "restrict3", "add_prolongation"),
+                        0.0)
     for n in (16, 128, 256, 512):
+        err["scalaron_half_sweep"] = max(
+            err["scalaron_half_sweep"],
+            phase_scalaron_kernel(torch, np, lap, st, n, gen))
         x, b, rhs = _grids(torch, n, gen)
         red, black = lap.pack_rb(x)
         h2b = lap.pack_rb(b * float(np.float32(1.0 / (n * n))))
@@ -300,10 +412,18 @@ def phase_stencil_kernels(torch, np):
     red, black = lap.pack_rb(x)
     h2b_r, _ = lap.pack_rb(b * float(np.float32(1.0 / (n * n))))
     xc = torch.randn((n // 2,) * 3, generator=gen, device="cuda")
+    (s_red, s_black), s_hb, s_rhs = _scalaron_inputs(torch, np, lap, n, gen)
+    c0 = float(np.float32(np.float32(1.0 / (n * n)) * np.float32(-0.1)))
+    s_plane = c0 - lap.pack_rb(1e-3 * s_rhs)[0]
     calls = {
         "half_sweep": (lambda: st.half_sweep(black, red, h2b_r, True, 1.25),
                        lambda: st.half_sweep_plain(black, red, h2b_r, True,
                                                    1.25)),
+        "scalaron_half_sweep": (
+            lambda: st.scalaron_half_sweep(s_black, s_red, s_hb[0], c0,
+                                           True, 1.25, 2),
+            lambda: st.scalaron_half_sweep_plain(s_black, s_red, s_hb[0],
+                                                 c0, True, 1.25, 2)),
         "residual_norm2": (
             lambda: st.residual_norm2("linear", x, b),
             lambda: st.residual_norm2_plain("linear", x, b)),
@@ -319,6 +439,13 @@ def phase_stencil_kernels(torch, np):
         times[f"{name}_plain"] = time_ms(torch, twin)
         log(f"[3 stencil times] 256^3 {name}: {times[name]:.3f} ms (twin "
             f"{times[f'{name}_plain']:.3f})")
+    for power in (2, 3):
+        t_s = time_ms(torch, lambda: st.scalaron_half_sweep(
+            s_black, s_red, s_hb[0], c0, True, 1.25, power))
+        t_p = time_ms(torch, lambda: st.scalaron_half_sweep(
+            s_black, s_red, s_hb[0], s_plane, True, 1.25, power))
+        log(f"[3 stencil times] 256^3 scalaron_half_sweep power={power}: "
+            f"scalar c0 {t_s:.3f} ms, plane c0 {t_p:.3f} ms")
     for kind, q in RESIDUAL_KINDS[1:]:
         bb = None if kind == "laplacian" else b
         t_n = time_ms(torch, lambda: st.residual_norm2(kind, x, bb, q=q))
@@ -326,7 +453,27 @@ def phase_stencil_kernels(torch, np):
         t_rr = time_ms(torch, lambda: st.restrict3(kind, x, bb, rhs, q=q))
         log(f"[3 stencil times] 256^3 {kind}: residual_norm2 {t_n:.3f} ms, "
             f"restrict3 {t_r:.3f} ms (with rhs {t_rr:.3f} ms)")
-    return err, times
+    # bounds of the timed calls: each operand read once, each output
+    # written once, in bytes; the operations per cell (neighbour sum 5,
+    # update 4 for the half-sweep; the neighbour cubes 12, p 2 and 3
+    # Newton steps of ~10 with a division for the scalaron sweep; the
+    # linear residual 9 and its square-sum 2; 8 more a coarse cell for
+    # the restriction; 13 a fine cell for the prolongation)
+    half = red.numel() * 4
+    full = x.numel() * 4
+    coarse = xc.numel() * 4
+    meta = {
+        "half_sweep": bound(4 * half, 9 * red.numel()),
+        "scalaron_half_sweep": bound(4 * half, 44 * red.numel()),
+        "residual_norm2": bound(2 * full, 11 * x.numel()),
+        "restrict3": bound(2 * full + coarse, 9 * x.numel() + 8 * xc.numel()),
+        "add_prolongation": bound(2 * full + coarse, 13 * x.numel()),
+    }
+    for name, (ms, by) in meta.items():
+        log(f"[3 bounds] 256^3 {name}: {ms:.4f} ms ({by}); no single "
+            "PyTorch call computes it")
+    meta = {k: {"bound": v, "library_ms": None} for k, v in meta.items()}
+    return err, times, meta
 
 
 def phase_pk_bitwise(torch):
@@ -462,7 +609,7 @@ def _drive(torch, tmp, tag, overrides, names):
     stats = dict(multigrid.STATS)
     _check_launches(recs, names, tag)
     drifts = [r.drift for r in recs]
-    log(f"[{tag}] {len(recs)} steps in {wall:.1f} s (with host ICs and "
+    log(f"[{tag}] {len(recs)} steps in {wall:.1f} s (with ICs and "
         f"I/O); drift levels {drifts}")
     log(f"[{tag}] step wall times ms: "
         + " ".join(f"{1e3 * r.seconds:.1f}" for r in recs))
@@ -492,7 +639,8 @@ def phase_main_path(torch, np, tmp):
 
 
 E2E_PARAM = {  # tests/test_e2e.py's base configuration, npz snapshots
-    "theory": "newton", "mond_function": "simple", "mond_g0": 1.2,
+    "theory": "newton", "fR_logfR0": 5, "fR_n": 1,
+    "mond_function": "simple", "mond_g0": 1.2,
     "mond_scale_factor_exponent": 0, "mond_alpha": 1,
     "parametrized_mu0": -0.1, "H0": 72, "Om_m": 0.25733, "T_cmb": 2.726,
     "N_eff": 3.044, "w0": -1.0, "wa": 0.0, "boxlen": 100, "ncoarse": 4,
@@ -507,8 +655,8 @@ E2E_PARAM = {  # tests/test_e2e.py's base configuration, npz snapshots
 }
 
 
-def phase_mg_e2e(np, tmp):
-    """Two tests/test_e2e.py multigrid rows on the card (twice) and on the
+def phase_mg_e2e(np, tmp, rows, tag):
+    """tests/test_e2e.py multigrid rows on the card (twice) and on the
     CPU: P(k) within 1e-4, the card's reruns bitwise equal."""
     import pysco_tpu_torch
     from pysco_tpu_torch.utils import io as iostream
@@ -527,14 +675,13 @@ def phase_mg_e2e(np, tmp):
             os.path.join(base, "output_00001", snap[0])),
             {p: np.loadtxt(os.path.join(base, "power", p)) for p in pks})
 
-    for row, over in (("newton_multigrid_tsc_2lpt", {}),
-                      ("mond_multigrid", {"theory": "mond"})):
+    for row, over in rows:
         got = {}
-        for tag, device in (("a", "cuda"), ("b", "cuda"), ("cpu", "cpu")):
-            base = os.path.join(tmp, f"e2e_{row}_{tag}")
+        for run, device in (("a", "cuda"), ("b", "cuda"), ("cpu", "cpu")):
+            base = os.path.join(tmp, f"e2e_{row}_{run}")
             pysco_tpu_torch.run(dict(E2E_PARAM, power_spectrum_file=pk_file,
                                      base=base, **over), device=device)
-            got[tag] = outputs(base)
+            got[run] = outputs(base)
         for x, y in zip(got["a"][0], got["b"][0]):
             check(np.array_equal(x, y),
                   f"{row}: two card runs differ in their final snapshot")
@@ -550,7 +697,7 @@ def phase_mg_e2e(np, tmp):
             rel = float((np.abs(a[sel, 1] - c[sel, 1]) / c[sel, 1]).max())
             check(rel < 1e-4, f"{row} {name}: card vs CPU P(k) {rel:.2e}")
             worst = max(worst, rel)
-        log(f"[6 mg e2e] {row}: two card runs bitwise equal; card vs CPU "
+        log(f"[{tag}] {row}: two card runs bitwise equal; card vs CPU "
             f"max rel P(k) {worst:.2e} (bound 1e-4)")
 
 
@@ -568,11 +715,11 @@ def phase_mg_main_path(torch, np, tmp):
                                   "mass_scheme": "TSC",
                                   "linear_newton_solver": "multigrid",
                                   "multigrid_cycle": "V"},
-        tuple(KERNELS))
+        POISSON_KERNELS)
     check(len(recs) >= 8, f"only {len(recs)} steps")
     steps_ms = [1e3 * r.seconds for r in recs[1:]]
     per_step = {k: (recs[-1].launches[k] - recs[0].launches[k])
-                / (len(recs) - 1) for k in KERNELS}
+                / (len(recs) - 1) for k in POISSON_KERNELS}
     sorted_ms = [t for t, r in zip(steps_ms, recs[1:]) if not r.drift]
     log(f"[7 mg main] median step {np.median(steps_ms):.1f} ms over "
         f"{len(steps_ms)} steps, {len(sorted_ms)} of them sorted (median "
@@ -617,11 +764,132 @@ def phase_mond(torch, np, tmp):
                                "ncoarse": 7, "npart": n ** 3,
                                "z_out": "[30]", "mass_scheme": "TSC",
                                "linear_newton_solver": "multigrid"},
-        tuple(KERNELS))
+        POISSON_KERNELS)
     check(len(recs) >= 3, f"only {len(recs)} QUMOND steps")
     log(f"[8 mond] V-cycles per solve {stats['cycles'] / stats['solves']:.2f}"
         f" ({stats['solves']} solves: two per force evaluation)")
     _check_outputs(torch, np, base, n, "tsc", "8 mond")
+
+
+def _fr_components(torch, np, pos, vel, param, n, scheme, ncoarse):
+    """The pieces of an f(R) force evaluation on the final state: the
+    snapshot re-sorted and re-deposited, the scalaron and the potential
+    solved to the stall, then each piece timed with CUDA events (mean of
+    5 after a warm-up)."""
+    from pysco_tpu_torch import solver
+    from pysco_tpu_torch.cosmo import generate
+    from pysco_tpu_torch.models import cubic
+    from pysco_tpu_torch.models import laplacian as lap
+    from pysco_tpu_torch.models import multigrid as mg
+    from pysco_tpu_torch.ops import mesh
+    from pysco_tpu_torch.ops import stencil as st
+    from pysco_tpu_torch.ops import tiled_pm as tp
+    from pysco_tpu_torch.utils.units import set_units
+
+    pc, vc = tp.to_columns_host(pos, vel, n ** 3)
+    pc, vc = (torch.as_tensor(a, device="cuda") for a in (pc, vc))
+    ps, vs, ts = tp.sort_particles(pc, vc, n, scheme)
+    density = tp.deposit(ps, ts, n, scheme)
+    p = dict(param, aexp=1.0 / (1.0 + float(param["z_out"].strip("[]"))))
+    generate(p)  # sets Om_lambda, which the f(R) constants read
+    set_units(p)
+    dyn = solver.compute_dynamics(p)
+    b = dyn.fR_f1 * density + dyn.fR_f2
+    ops = mg.fas_ops_cubic(dyn.fR_q)
+    u = cubic.initialise_potential(b, dyn.fR_q)
+    u = mg.FAS(u, b, ops, ncoarse, 2, 1, 0.0)  # to the stall
+    rhs = solver._newton_rhs(density, dyn)
+    phi = mg.linear(lap.initialise_potential(rhs), rhs, ncoarse, 2, 1, 0.0)
+    force = mesh.derivative_fR(phi, u, dyn.fR_half_c2, 1, 5, True)
+    red, black = lap.pack_rb(u)
+    hb_r, _ = lap.pack_rb(float(np.float32(1.0 / (n * n))) * b)
+    c0 = float(np.float32(np.float32(1.0 / (n * n))
+                          * np.float32(dyn.fR_q)))
+    comps = {
+        "tile sort": lambda: tp.sort_particles(pc, vc, n, scheme),
+        "deposit (drift 0)": lambda: tp.deposit(ps, ts, n, scheme),
+        "deposit (drift 1)": lambda: tp.deposit(ps, ts, n, scheme, 1),
+        "scalaron smoothing(Npre=2)": lambda: ops.smoothing(u, b, 2),
+        "scalaron_half_sweep": lambda: st.scalaron_half_sweep(
+            black, red, hb_r, c0, True, 1.25, 2),
+        "restrict_all": lambda: ops.restrict_all(u, b),
+        "residual_error": lambda: ops.residual_error(u, b),
+        "truncation_error": lambda: ops.truncation_error(u, b),
+        "V_cycle_FAS": lambda: mg.V_cycle_FAS(u, b, ops, ncoarse, 2, 1),
+        "V_cycle (Poisson)": lambda: mg.V_cycle(phi, rhs, ncoarse, 2, 1),
+        "derivative_fR (5-point)": lambda: mesh.derivative_fR(
+            phi, u, dyn.fR_half_c2, 1, 5, True),
+        "gather (drift 0)": lambda: tp.gather_vec_cl(force, ps, ts, scheme),
+    }
+    for name, fn in comps.items():
+        log(f"[10 fr components] {n}^3 {name}: "
+            f"{time_ms(torch, fn, 5):.3f} ms")
+    log(f"[10 fr components] mean(u) of the stalled solve "
+        f"{float(u.double().mean()):.7f}")
+
+
+def _per_solve(stats):
+    """V-cycles per FAS solve and per Poisson (linear) solve."""
+    fas = stats["fas_cycles"] / max(stats["fas_solves"], 1)
+    lin_solves = stats["solves"] - stats["fas_solves"]
+    lin = (stats["cycles"] - stats["fas_cycles"]) / max(lin_solves, 1)
+    return fas, lin
+
+
+FR_OVERRIDES = {"theory": "fr", "fR_logfR0": 5.0,
+                "linear_newton_solver": "multigrid", "multigrid_cycle": "V",
+                "write_initial_snapshot": False}
+
+
+def phase_fr_main_path(torch, np, tmp):
+    """This slice's main path: fr_n1_cic_multigrid_512 through run()."""
+    from pysco_tpu_torch import ic_device
+
+    n = 512
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    over = dict(FR_OVERRIDES, fR_n=1, boxlen=500.0, ncoarse=9,
+                npart=n ** 3, z_out="[20]", mass_scheme="CIC")
+    recs, launches, stats, base = _drive(torch, tmp, "10 fr main", over,
+                                         tuple(KERNELS))
+    peak = torch.cuda.max_memory_allocated()
+    check(len(recs) >= 3, f"only {len(recs)} f(R) steps")
+    steps_ms = [1e3 * r.seconds for r in recs[1:]]
+    fas, lin = _per_solve(stats)
+    per_step = {k: (recs[-1].launches[k] - recs[0].launches[k])
+                / (len(recs) - 1) for k in KERNELS}
+    mean_u = [r.mean_additional for r in recs]
+    check(all(np.isfinite(mean_u)) and all(abs(m - 1) < 0.1 for m in mean_u),
+          f"mean(u) off its background value: {mean_u}")
+    log(f"[10 fr main] median step {np.median(steps_ms):.1f} ms over "
+        f"{len(steps_ms)} steps (first excluded); V-cycles per FAS solve "
+        f"{fas:.2f}, per Poisson solve {lin:.2f} ({stats})")
+    log(f"[10 fr main] mean(u) per step: "
+        + " ".join(f"{m:.7f}" for m in mean_u))
+    log(f"[10 fr main] device ICs {ic_device.TIMES['generate_lpt']:.2f} s; "
+        f"peak device memory {peak / 2 ** 30:.2f} GiB "
+        f"(torch.cuda.max_memory_allocated)")
+    log("[10 fr main] launches per step: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in per_step.items()))
+    pos, vel = _check_outputs(torch, np, base, n, "cic", "10 fr main")
+    param = dict(GOLDEN_PARAM, **over)
+    _fr_components(torch, np, pos, vel, param, n, "cic", 9)
+    return launches
+
+
+def phase_fr_n2(torch, np, tmp):
+    n = 256
+    over = dict(FR_OVERRIDES, fR_n=2, boxlen=500.0, ncoarse=8,
+                npart=n ** 3, z_out="[30]", mass_scheme="TSC")
+    recs, _, stats, base = _drive(torch, tmp, "11 fr n2", over,
+                                  tuple(KERNELS))
+    check(len(recs) >= 3, f"only {len(recs)} f(R) n = 2 steps")
+    fas, lin = _per_solve(stats)
+    log(f"[11 fr n2] median step "
+        f"{np.median([1e3 * r.seconds for r in recs[1:]]):.1f} ms over "
+        f"{len(recs) - 1} steps; V-cycles per FAS solve {fas:.2f}, per "
+        f"Poisson solve {lin:.2f}; mean(u) {recs[-1].mean_additional:.7f}")
+    _check_outputs(torch, np, base, n, "tsc", "11 fr n2")
 
 
 def main() -> int:
@@ -633,27 +901,39 @@ def main() -> int:
     import torch
 
     t_start = time.perf_counter()
-    phase_device(torch)
+    smi = phase_device(torch)
     phase_build()
-    err, times = phase_kernels(torch)
-    err_st, times_st = phase_stencil_kernels(torch, np)
+    err, times, meta = phase_kernels(torch)
+    err_st, times_st, meta_st = phase_stencil_kernels(torch, np)
     err.update(err_st)
     times.update(times_st)
+    meta.update(meta_st)
     tmp = tempfile.mkdtemp(prefix="pysco_smoke_")
     try:
         phase_golden(np, tmp)
         phase_pk_bitwise(torch)
         phase_main_path(torch, np, tmp)
-        phase_mg_e2e(np, tmp)
-        launches = phase_mg_main_path(torch, np, tmp)
+        phase_mg_e2e(np, tmp, (("newton_multigrid_tsc_2lpt", {}),
+                               ("mond_multigrid", {"theory": "mond"})),
+                     "6 mg e2e")
+        phase_mg_main_path(torch, np, tmp)
         phase_mond(torch, np, tmp)
+        phase_mg_e2e(np, tmp, (("fr_n1", {"theory": "fr", "fR_n": 1}),
+                               ("fr_n2", {"theory": "fr", "fR_n": 2})),
+                     "9 fr e2e")
+        launches = phase_fr_main_path(torch, np, tmp)
+        phase_fr_n2(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")
+    log(smi)  # again near the end, for readers of the output's tail
     record = [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": times[name], "plain_ms": times[f"{name}_plain"]}
+         "ms": times[name], "plain_ms": times[f"{name}_plain"],
+         "bound_ms": meta[name]["bound"][0],
+         "bound_by": meta[name]["bound"][1],
+         "library_ms": meta[name]["library_ms"]}
         for name, (src, rep) in KERNELS.items()
     ]
     print(json.dumps({"kernels": record}))

@@ -3,10 +3,11 @@ Hopper GPU (H100).
 
 It reads the same param.ini/dict keys and writes the same files as the
 JAX package (ASCII power spectra, HDF5/Parquet snapshots, the background
-evolution table). This slice runs the Newtonian and parametrized
-theories with the FFT Poisson solvers on one device; the tile-binned
-deposit and gather of the main path are CUDA C++ kernels written for
-``sm_90a`` (``csrc/``), built by ``nvcc`` at first use.
+evolution table). It runs the Newtonian, parametrized, f(R) and QUMOND
+theories with the FFT and multigrid Poisson solvers on one device, with
+LPT initial conditions built on the device; every kernel of the JAX
+package's Pallas set is a CUDA C++ kernel written for ``sm_90a``
+(``csrc/``), built by ``nvcc`` at first use.
 
 No global dtype switch: host scalars stay Python floats, and every
 device grid and particle array is float32. The package never imports

@@ -1,5 +1,6 @@
 // Shared pieces of the multigrid stencil kernels (half_sweep.cu,
-// residual.cu, prolongation.cu). Grids are float32, C order, periodic:
+// scalaron_sweep.cu, residual.cu, prolongation.cu). Grids are float32, C
+// order, periodic:
 // a full lattice is (n, n, n), a packed red-black half-lattice
 // (n, n/2, n) (pysco_tpu_torch/models/laplacian.py). Every expression
 // here is the one of the plain PyTorch twins in

@@ -24,12 +24,14 @@ from .solver import DynScalars, SolverConfig
 class StepDiagnostics(NamedTuple):
     max_abs_acc: torch.Tensor
     max_abs_vel: torch.Tensor
+    mean_additional: torch.Tensor  # mean of u (the f(R) scalaron)
     overflow: torch.Tensor | int
 
 
-def _diagnostics(acc, vel, overflow) -> StepDiagnostics:
+def _diagnostics(acc, vel, u, overflow) -> StepDiagnostics:
     return StepDiagnostics(torch.max(torch.abs(acc)),
-                           torch.max(torch.abs(vel)), overflow)
+                           torch.max(torch.abs(vel)), torch.mean(u),
+                           overflow)
 
 
 def _half_dt(dt) -> tuple[float, float]:
@@ -63,7 +65,7 @@ def step_impl(cfg: SolverConfig, integrator: str, first_call: bool,
         raise NotImplementedError(
             f"integrator {integrator!r}, must be 'leapfrog' or 'euler'"
         )
-    diag = _diagnostics(acceleration, velocity, overflow)
+    diag = _diagnostics(acceleration, velocity, u, overflow)
     return position, velocity, acceleration, potential, u, pk, diag
 
 
@@ -94,7 +96,7 @@ def step_lazy_impl(cfg: SolverConfig, integrator: str, presorted: int,
         raise NotImplementedError(
             f"integrator {integrator!r}, must be 'leapfrog' or 'euler'"
         )
-    diag = _diagnostics(acceleration, velocity, overflow)
+    diag = _diagnostics(acceleration, velocity, u, overflow)
     return (position, velocity, acceleration, potential, u, tstarts, pk,
             diag)
 

@@ -1,9 +1,11 @@
 """Run loop and CLI (PyTorch port of ``pysco_tpu/main.py``, single-device
 mode).
 
-``run(param, device)`` computes the background tables and the initial
-conditions on the host, then runs the adaptive kick-drift-kick loop on
-the device, writing snapshots and power spectra at each ``z_out``. The
+``run(param, device)`` computes the background tables on the host and
+the initial conditions on the device (LPT on the tiled engine, unless
+``ic_device`` is false) or on the host, then runs the adaptive
+kick-drift-kick loop on the device, writing snapshots and power spectra
+at each ``z_out``. The
 host picks dt from the previous step's max |acc| and max |vel|, and
 the lazy re-binning level from the accumulated drift bound.
 """
@@ -19,7 +21,7 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
-from . import cosmo, ic
+from . import cosmo, ic, ic_device
 from . import integrate as integration
 from . import solver as solver_mod
 from .ops import stencil, tiled_pm
@@ -36,6 +38,7 @@ class StepRecord(NamedTuple):
     seconds: float  # host wall time of the step, device synchronised
     overflow: int  # particles outside their drift windows
     launches: dict  # tiled_pm.LAUNCHES and stencil.LAUNCHES after the step
+    mean_additional: float  # mean of u after the step (the f(R) scalaron)
 
 
 def _setup_logging(verbose: int) -> None:
@@ -175,9 +178,16 @@ def run(param, device="cuda") -> list:
         param["nsteps"] = 0
 
     logging.warning("----- Initial conditions -----")
-    # a restart restores parameters (parallel_mode among them) from the
-    # snapshot, so the configuration is read only after this call
-    position, velocity = ic.generate(param, tables)
+    parallel_mode = str(param.get("parallel_mode", "single")).casefold()
+    device_ic = parallel_mode == "single" and ic_device.supported(param)
+    if device_ic:
+        # the LPT algebra on the device (only the RNG draw on the host),
+        # straight into the column state
+        position, velocity = ic_device.generate_lpt(param, tables, device)
+    else:
+        # a restart restores parameters (parallel_mode among them) from
+        # the snapshot, so the configuration is read only after this call
+        position, velocity = ic.generate(param, tables)
     param["t"] = float(tables[1](np.log(param["aexp"])))
     param["aexp_old"] = param["aexp"]
     logging.warning("aexp=%s t=%s", param["aexp"], param["t"])
@@ -193,11 +203,14 @@ def run(param, device="cuda") -> list:
     integrator = str(param["integrator"]).casefold()
     pk_mode = _save_pk_mode(param)
 
-    if cfg.particle_engine == "pallas":
-        position, velocity = tiled_pm.to_columns_host(position, velocity,
-                                                      cfg.npart)
-    position = torch.as_tensor(np.asarray(position, np.float32)).to(device)
-    velocity = torch.as_tensor(np.asarray(velocity, np.float32)).to(device)
+    if not device_ic:
+        if cfg.particle_engine == "pallas":
+            position, velocity = tiled_pm.to_columns_host(
+                position, velocity, cfg.npart)
+        position = torch.as_tensor(np.asarray(position, np.float32)).to(
+            device)
+        velocity = torch.as_tensor(np.asarray(velocity, np.float32)).to(
+            device)
     potential, u = solver_mod.empty_fields(cfg, device)
 
     logging.warning("----- Run N-body -----")
@@ -264,10 +277,12 @@ def run(param, device="cuda") -> list:
         max_abs_vel = float(diag.max_abs_vel)
         overflow = int(diag.overflow)
         seconds = perf_counter() - t_step0
+        mean_u = float(diag.mean_additional)
         logging.info("step wall time: %.1f ms", 1e3 * seconds)
         records.append(StepRecord(int(param["nsteps"]), presorted, seconds,
                                   overflow,
-                                  {**tiled_pm.LAUNCHES, **stencil.LAUNCHES}))
+                                  {**tiled_pm.LAUNCHES, **stencil.LAUNCHES},
+                                  mean_u))
         _handle_overflow(
             param, overflow,
             "lazy re-binning drift-bound violation (particles outside the "
@@ -275,6 +290,9 @@ def run(param, device="cuda") -> list:
         )
         if save_pk:
             _write_pk(pk, param)
+        if cfg.theory == "fr" and param["nsteps"] % 10 == 0:
+            logging.info("mean(u_scalaron)=%s (should stay close to 1)",
+                         mean_u)
         if param["write_snapshot"]:
             pos_np, vel_np = solver_mod.particles_to_rows(cfg, position,
                                                           velocity)

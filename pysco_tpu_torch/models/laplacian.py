@@ -9,14 +9,17 @@ Red-black Gauss-Seidel (f_relax = 1.25) runs on packed half-lattices: the
 two colours live in separate (n, n/2, n) grids, so each colour update
 reads only the other colour. Cells with odd (i+j+k) are "red" and are
 relaxed first. On the card each colour update is one launch of the
-half-sweep kernel; the residual norms and the restrictions of the
-residual go through the residual-norm and fused-restriction kernels
-(``ops/stencil.py``). The masked full-lattice sweeps
-(:func:`gauss_seidel`) are the oracles of the packed form.
+half-sweep kernel (the scalaron sweep kernel for the f(R) equations,
+:func:`packed_scalaron_smoothing`); the residual norms and the
+restrictions of the residual go through the residual-norm and
+fused-restriction kernels (``ops/stencil.py``). The masked full-lattice
+sweeps (:func:`gauss_seidel`, ``cubic.gauss_seidel``,
+``quartic.gauss_seidel``) are the oracles of the packed form.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import stencil
@@ -140,6 +143,62 @@ def _smoothing_packed(x, b, n_smoothing: int, rhs=None,
     for _ in range(n_smoothing):
         red = half(black, red, h2b_r, True, rhs_r)
         black = half(red, black, h2b_b, False, rhs_b)
+    return unpack(red, black)
+
+
+def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
+                              exact_root: bool, n_power: int, exact_solve,
+                              exact_scale: float, pack=None, unpack=None,
+                              neighbour_sum=None) -> torch.Tensor:
+    """Packed red-black sweeps of the f(R) scalaron equation
+    u^(n_power+1) + p u + q h^2 [- rhs] = 0, one pack/unpack round trip
+    (``cubic.smoothing`` with n_power = 2, ``quartic.smoothing`` with 3).
+
+    Each colour update reads only the opposite half-lattice's n_power-th
+    power. With the Newton root it is :func:`stencil.scalaron_half_sweep`
+    (the CUDA kernel on the card), c0 = h^2 q [- rhs] in float32; with
+    ``exact_root`` the float64 closed form ``exact_solve(p, coef)`` takes
+    the root in plain torch, coef = exact_scale (h^2 q [- rhs]) in float64
+    (27 for the cubic's d1, 1 for the quartic). The relaxation factor is
+    :data:`F_RELAX`. An injected neighbour sum runs the plain form."""
+    pack = pack or pack_rb
+    unpack = unpack or unpack_rb
+    n = x.shape[1]
+    h2 = 1.0 / (n * n)
+    red, black = pack(x)
+    hb_r, hb_b = pack(_f32(h2) * b)
+    if exact_root:
+        base = exact_scale * h2 * float(q)
+        if rhs is None:
+            coef_r = coef_b = base
+        else:
+            r_r, r_b = pack(rhs)
+            coef_r = base - exact_scale * r_r.double()
+            coef_b = base - exact_scale * r_b.double()
+    else:
+        c0_q = _f32(np.float32(h2) * np.float32(q))
+        if rhs is None:
+            coef_r = coef_b = c0_q
+        else:
+            r_r, r_b = pack(rhs)
+            coef_r, coef_b = c0_q - r_r, c0_q - r_b
+
+    def half(src, dst, hb, coef, to_red):
+        if exact_root:
+            nsum = neighbour_sum or packed_neighbour_sum
+            p = hb - _INVSIX * nsum(stencil._power(src, n_power), to_red)
+            x_new = exact_solve(p, coef).to(torch.float32)
+            return dst + _f32(F_RELAX) * (x_new - dst)
+        if neighbour_sum is None:
+            return stencil.scalaron_half_sweep(src, dst, hb, coef, to_red,
+                                               F_RELAX, n_power)
+        return stencil.scalaron_half_sweep_plain(
+            src, dst, hb, coef, to_red, F_RELAX, n_power,
+            neighbour_sum=neighbour_sum)
+
+    for _ in range(n_smoothing):
+        red = half(black, red, hb_r, coef_r, True)
+        black = half(red, black, hb_b, coef_b, False)
     return unpack(red, black)
 
 

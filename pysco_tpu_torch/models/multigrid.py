@@ -11,7 +11,9 @@ improvement ratio falls under 2 (2 err > prev), or after
 fixed order, so the loop takes the same branch on every run.
 
 FAS: tau-correction ``res_c = 4 * res_c + op(R(x), R(b))`` with the x4
-residual normalisation of Laplacian-type operators.
+residual normalisation of Laplacian-type operators; the operator sets are
+the reformulated Laplacian and the f(R) scalaron's cubic (n = 1) and
+quartic (n = 2) equations.
 """
 
 from __future__ import annotations
@@ -23,12 +25,15 @@ import numpy as np
 import torch
 
 from ..ops import mesh, stencil
+from . import cubic as cubic_mod
 from . import laplacian as lap
+from . import quartic as quartic_mod
 
 MAX_CYCLES = 30  # safety cap, as in the JAX package; the reference has none
 
-# solves and cycles run by _converge since the last reset_stats()
-STATS = {"solves": 0, "cycles": 0}
+# solves and cycles run by _converge since the last reset_stats(): all of
+# them, and of those the FAS ones (the f(R) scalaron) on their own
+STATS = {"solves": 0, "cycles": 0, "fas_solves": 0, "fas_cycles": 0}
 
 
 def reset_stats() -> None:
@@ -87,6 +92,36 @@ def fas_ops_laplacian() -> FASOps:
     )
 
 
+def _fas_ops_scalaron(kind: str, mod, q, exact_root: bool) -> FASOps:
+    def smoothing(x, b, n, rhs=None):
+        return mod.smoothing(x, b, q, n, rhs, exact_root=exact_root)
+
+    def restrict_residual(x, b, rhs=None):
+        if rhs is None:
+            return mod.restrict_residual(x, b, q)
+        return mod.restrict_residual_with_rhs(x, b, q, rhs)
+
+    return FASOps(
+        smoothing=smoothing,
+        operator=lambda x, b: mod.operator(x, b, q),
+        restrict_residual=restrict_residual,
+        residual_error=lambda x, b: mod.residual_error(x, b, q),
+        truncation_error=lambda x, b: mod.truncation_error(x, b, q),
+        restrict_all=lambda x, b, rhs=None: _restrict_all_fused(
+            kind, x, b, rhs, q=q),
+    )
+
+
+def fas_ops_cubic(q, exact_root: bool = False) -> FASOps:
+    """The f(R) n = 1 scalaron equation u^3 + p u + q h^2 = 0."""
+    return _fas_ops_scalaron("cubic", cubic_mod, q, exact_root)
+
+
+def fas_ops_quartic(q, exact_root: bool = False) -> FASOps:
+    """The f(R) n = 2 scalaron equation u^4 + p u + q h^2 = 0."""
+    return _fas_ops_scalaron("quartic", quartic_mod, q, exact_root)
+
+
 # ---------------------------------------------------------------------------
 # Linear cycles
 # ---------------------------------------------------------------------------
@@ -130,15 +165,18 @@ def W_cycle(x, b, ncoarse: int, Npre: int, Npost: int, level: int = 0):
     return x
 
 
-def _converge(x, b, cycle_fn, error_fn, tolerance):
+def _converge(x, b, cycle_fn, error_fn, tolerance, fas: bool = False):
     """Iterate ``cycle_fn`` until err <= tolerance or the improvement
-    ratio falls under 2; one scalar fetch per cycle."""
+    ratio falls under 2; one scalar fetch per cycle. ``fas`` counts the
+    solve under STATS' FAS entries too."""
     tol = np.float32(float(tolerance))
     prev = np.float32(1e30)
     STATS["solves"] += 1
+    STATS["fas_solves"] += int(fas)
     for _ in range(MAX_CYCLES):
         x = cycle_fn(x, b)
         STATS["cycles"] += 1
+        STATS["fas_cycles"] += int(fas)
         err = np.float32(float(error_fn(x, b)))
         if err <= tol or err * np.float32(2) > prev:
             break
@@ -215,5 +253,5 @@ def FAS(x, b, ops: FASOps, ncoarse: int, Npre: int, Npost: int, tolerance,
     cyc = {"V": V_cycle_FAS, "F": F_cycle_FAS, "W": W_cycle_FAS}[cycle]
     return _converge(
         x, b, lambda x_, b_: cyc(x_, b_, ops, ncoarse, Npre, Npost),
-        ops.residual_error, tolerance,
+        ops.residual_error, tolerance, fas=True,
     )

@@ -103,6 +103,42 @@ def inverse_laplacian_7pt(xk: torch.Tensor) -> torch.Tensor:
     return _zero_dc(xk * (minus_h2_inv4 / f))
 
 
+_TWOPI_I = complex(0.0, float(np.float32(2 * math.pi)))
+_FOURPI2 = _f32(4 * math.pi ** 2)
+
+
+def gradient(xk: torch.Tensor) -> torch.Tensor:
+    """Spectral gradient 2 pi i k_n x -> (N, N, N//2+1, 3)."""
+    return torch.stack([gradient_axis(xk, a) for a in range(3)], dim=-1)
+
+
+def gradient_axis(xk: torch.Tensor, axis: int) -> torch.Tensor:
+    """One component of :func:`gradient` (the device ICs take one at a
+    time, holding one complex grid where the stack holds three)."""
+    ks = _wavenumbers(xk.shape[0], xk.device)
+    return (_TWOPI_I * xk) * ks[axis]
+
+
+def hessian(xk: torch.Tensor, ij) -> torch.Tensor:
+    """Second-derivative kernel -4 pi^2 k_i k_j x."""
+    ks = _wavenumbers(xk.shape[0], xk.device)
+    return -ks[ij[0]] * ks[ij[1]] * _FOURPI2 * xk
+
+
+def sum_of_hessian(xk: torch.Tensor, ij1, ij2) -> torch.Tensor:
+    """-4 pi^2 (k_i k_j + k_l k_m) x."""
+    ks = _wavenumbers(xk.shape[0], xk.device)
+    return (-(ks[ij1[0]] * ks[ij1[1]] + ks[ij2[0]] * ks[ij2[1]]) * _FOURPI2
+            * xk)
+
+
+def diff_of_hessian(xk: torch.Tensor, ij1, ij2) -> torch.Tensor:
+    """-4 pi^2 (k_i k_j - k_l k_m) x."""
+    ks = _wavenumbers(xk.shape[0], xk.device)
+    return (-(ks[ij1[0]] * ks[ij1[1]] - ks[ij2[0]] * ks[ij2[1]]) * _FOURPI2
+            * xk)
+
+
 def _gradient_inverse_laplacian_from_ratio(xk, ratio):
     kx, ky, kz = _wavenumbers(xk.shape[0], xk.device)
     tmp = -1j * (ratio * xk)

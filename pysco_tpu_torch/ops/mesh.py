@@ -5,7 +5,8 @@ main-path part of ``pysco_tpu/ops/mesh.py``).
   and interpolation on ``(npart, 3)`` row particles by ``index_add`` and
   advanced indexing -- the ``particle_engine = scatter`` path. On the
   card ``index_add`` sums with atomics, so its order is not fixed.
-- ``derivative``: 2/3/5/7-point gradient stencils by ``torch.roll``.
+- ``derivative``: 2/3/5/7-point gradient stencils by ``torch.roll``;
+  ``derivative_fR`` adds the f(R) scalaron's fifth force.
 - ``restriction`` / ``prolongation`` / ``add_prolongation``: the
   multigrid transfer operators; ``add_prolongation`` runs the CUDA kernel
   of ``ops/stencil.py`` on the card.
@@ -152,6 +153,20 @@ def derivative(a: torch.Tensor, order: int,
     ``leading=True`` (the layout the tiled gather reads)."""
     return torch.stack([_axis_diff(a, ax, order) for ax in range(3)],
                        dim=0 if leading else -1)
+
+
+def derivative_fR(a: torch.Tensor, b: torch.Tensor, f, fR_n: int,
+                  order: int, leading: bool = False) -> torch.Tensor:
+    """f(R) force mesh: grad(a + f b^(fR_n+1)), f rounded to float32 (the
+    stencil is linear, so this is grad(a) + f grad(b^(fR_n+1)))."""
+    f = float(np.float32(f))
+    if fR_n == 1:
+        combined = a + f * b * b
+    elif fR_n == 2:
+        combined = a + f * b * b * b
+    else:
+        raise NotImplementedError(f"fR_n must be 1 or 2, got {fR_n}")
+    return derivative(combined, order, leading)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,10 @@
-"""Multigrid stencil kernels: the red-black half-sweep, the residual norm,
-the fused restriction and the prolongation (the PyTorch/CUDA counterpart
-of ``pysco_tpu/ops/pallas_stencil.py``, which it replaces for the linear
-Poisson operator and the residual kinds).
+"""Multigrid stencil kernels: the red-black half-sweep (linear and f(R)
+scalaron), the residual norm, the fused restriction and the prolongation
+(the PyTorch/CUDA counterpart of ``pysco_tpu/ops/pallas_stencil.py``).
 
 Each kernel is hand-written CUDA (``csrc/half_sweep.cu``,
-``csrc/residual.cu``, ``csrc/prolongation.cu``) with a plain PyTorch
+``csrc/scalaron_sweep.cu``, ``csrc/residual.cu``,
+``csrc/prolongation.cu``) with a plain PyTorch
 twin beside it of the same signature (``*_plain``). A wrapper takes the
 twin for a CPU tensor and launches the kernel for a CUDA tensor, at every
 grid size (the multigrid levels go down to 4^3); there is no fallback
@@ -31,8 +31,8 @@ F32 = torch.float32
 
 # kernel launches by the CUDA wrappers (one per wrapper call); the CPU
 # twins do not count
-LAUNCHES = {"half_sweep": 0, "residual_norm2": 0, "restrict3": 0,
-            "add_prolongation": 0}
+LAUNCHES = {"half_sweep": 0, "scalaron_half_sweep": 0, "residual_norm2": 0,
+            "restrict3": 0, "add_prolongation": 0}
 
 #: residual kind -> (kernel enum, neighbour power, needs b); the kinds of
 #: pysco_tpu/ops/pallas_stencil.py _KINDS
@@ -45,6 +45,7 @@ _KINDS = {
 }
 
 _INVSIX = float(np.float32(1.0 / 6.0))
+_NEWTON_EPS = float(np.float32(1e-12))
 _MAX_N = 1024  # the kernels index with 32-bit ints: n^3 < 2^31
 
 
@@ -144,6 +145,35 @@ def half_sweep_plain(src, dst, h2b, to_red: bool, f_relax: float, rhs=None,
     return dst + _f32(f_relax) * (tgt - dst)
 
 
+def newton_root(x, p, c0, n_power: int, iters: int = 3) -> torch.Tensor:
+    """Polish the root of u^(n_power+1) + p u + c0 = 0 by float32 Newton
+    steps from the seed x (the JAX package's ``cubic._newton_root`` for
+    n_power = 2, ``quartic._newton_root`` for 3, in their operand
+    order)."""
+    for _ in range(iters):
+        if n_power == 2:
+            f = x * (x * x + p) + c0
+            fp = 3.0 * x * x + p
+        else:
+            x2 = x * x
+            f = x2 * x2 + p * x + c0
+            fp = 4.0 * x2 * x + p
+        fp = torch.where(torch.abs(fp) < _NEWTON_EPS, _NEWTON_EPS, fp)
+        x = x - f / fp
+    return x
+
+
+def scalaron_half_sweep_plain(src, dst, hb, coef, to_red: bool,
+                              f_relax: float, n_power: int,
+                              newton_iters: int = 3,
+                              neighbour_sum=packed_neighbour_sum):
+    """Twin of :func:`scalaron_half_sweep`. ``neighbour_sum`` is the
+    packed neighbour primitive (injectable for other packings)."""
+    p = hb - _INVSIX * neighbour_sum(_power(src, n_power), to_red)
+    x = newton_root(dst, p, coef, n_power, newton_iters)
+    return dst + _f32(f_relax) * (x - dst)
+
+
 def residual_norm2_plain(kind: str, x, b=None, rhs=None,
                          q=None) -> torch.Tensor:
     """Twin of :func:`residual_norm2`."""
@@ -181,11 +211,14 @@ def _kernels():
     lib = cuda_build.load()
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pysco_half_sweep.argtypes = [P, P, P, P, P, I, I, F, P]
+    lib.pysco_scalaron_half_sweep.argtypes = [P, P, P, P, F, P, I, I, F, I,
+                                              I, P]
     lib.pysco_norm2_blocks.argtypes = [I]
     lib.pysco_residual_norm2.argtypes = [I, P, P, P, I, F, F, F, P, P, P]
     lib.pysco_restrict3.argtypes = [I, P, P, P, I, F, F, F, P, P, P, P]
     lib.pysco_add_prolongation.argtypes = [P, P, P, I, P]
-    for fn in (lib.pysco_half_sweep, lib.pysco_norm2_blocks,
+    for fn in (lib.pysco_half_sweep, lib.pysco_scalaron_half_sweep,
+               lib.pysco_norm2_blocks,
                lib.pysco_residual_norm2, lib.pysco_restrict3,
                lib.pysco_add_prolongation):
         fn.restype = I
@@ -251,6 +284,39 @@ def half_sweep(src, dst, h2b, to_red: bool, f_relax: float, rhs=None):
         out.data_ptr(), n, int(bool(to_red)), _f32(f_relax), _stream(out))
     _raise_on(err, "half_sweep")
     LAUNCHES["half_sweep"] += 1
+    return out
+
+
+def scalaron_half_sweep(src, dst, hb, coef, to_red: bool, f_relax: float,
+                        n_power: int, newton_iters: int = 3):
+    """One colour half of the packed nonlinear f(R) scalaron sweep on
+    (n, n/2, n) half-lattices: p = hb - sum_nb(src^n_power)/6, then
+    ``newton_iters`` Newton steps from dst on u^(n_power+1) + p u + c0 = 0
+    and dst + f_relax (root - dst). ``coef`` is c0: a float (h^2 q) or an
+    (n, n/2, n) plane (h^2 q - rhs)."""
+    plane = isinstance(coef, torch.Tensor) and coef.dim() == 3
+    if not _on_cuda("scalaron_half_sweep", src, dst, hb,
+                    coef if plane else None):
+        return scalaron_half_sweep_plain(src, dst, hb, coef, to_red, f_relax,
+                                         n_power, newton_iters)
+    if n_power not in (2, 3):
+        raise ValueError(f"scalaron_half_sweep: n_power={n_power}, should "
+                         "be 2 (f(R) n = 1) or 3 (n = 2)")
+    n = src.shape[0]
+    _check_n("scalaron_half_sweep", n)
+    shape = (n, n // 2, n)
+    for name, t in (("src", src), ("dst", dst), ("hb", hb),
+                    ("coef", coef if plane else None)):
+        _check(f"scalaron_half_sweep {name}", t, shape)
+    out = torch.empty_like(dst)
+    err = _kernels().pysco_scalaron_half_sweep(
+        src.data_ptr(), dst.data_ptr(), hb.data_ptr(),
+        coef.data_ptr() if plane else None,
+        0.0 if plane else _f32(float(coef)), out.data_ptr(), n,
+        int(bool(to_red)), _f32(f_relax), int(n_power), int(newton_iters),
+        _stream(out))
+    _raise_on(err, "scalaron_half_sweep")
+    LAUNCHES["scalaron_half_sweep"] += 1
     return out
 
 

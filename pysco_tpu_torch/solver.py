@@ -5,9 +5,9 @@ theory's extra field and Poisson source, the Poisson solve (in Fourier
 space or by multigrid), gradient stencil, gather. The JAX package traces
 it into one XLA program; here it runs eagerly on the device of the
 particle tensors. Per-step scalars (aexp, the parametrized mu(z), the
-tolerance factor, MOND's g0 in box units, the growth rescaling of the
-previous potential) are computed on the host in float64 and enter the
-device arithmetic as float32 values.
+tolerance factor, the f(R) background constants, MOND's g0 in box
+units, the growth rescaling of the previous potential) are computed on
+the host in float64 and enter the device arithmetic as float32 values.
 
 Conventions identical to the JAX package and the reference:
 - density grids hold particle counts normalised to mean 1;
@@ -15,9 +15,9 @@ Conventions identical to the JAX package and the reference:
   the QUMOND source of the Newtonian potential;
 - the "acceleration" is +grad(phi); the kick subtracts it.
 
-Theories: newton, parametrized and mond; solvers: fft, fft_7pt,
-full_fft and multigrid (V, F or W cycles). f(R) comes with the
-ROADMAP's f(R) slice.
+Theories: newton, parametrized, fr (Hu-Sawicki n = 1 or 2: the scalaron
+by FAS multigrid) and mond; solvers: fft, fft_7pt, full_fft and
+multigrid (V, F or W cycles).
 """
 
 from __future__ import annotations
@@ -30,18 +30,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .models import laplacian, mond, multigrid
+from .models import cubic, laplacian, mond, multigrid, quartic
 from .ops import fourier, mesh, tiled_pm
+from .utils.units import C_KMS
 
 F32 = torch.float32
 
-_THEORIES = ("newton", "parametrized", "mond")
+_THEORIES = ("newton", "parametrized", "fr", "mond")
 _SOLVERS = ("fft", "fft_7pt", "full_fft", "multigrid")
+_FR_ROOT_SOLVERS = ("newton", "exact")
 # accepted for parity with the JAX package's configs; they select TPU
 # matrix-unit passes there, and this port computes in float32 throughout
 _PM_PRECISIONS = ("f32", "bf16", "bf16x3", "bf16-gather")
-_FR_SLICE = ("ROADMAP.md Queue 1 item 10 (the f(R) slice: scalaron "
-             "sweep kernel, cubic/quartic models) brings it")
 
 
 @dataclass(frozen=True)
@@ -56,7 +56,13 @@ class SolverConfig:
     gradient_stencil_order: int
     Npre: int = 2
     Npost: int = 1
-    # multigrid cycle type for the linear solves: V, F or W
+    # f(R) Hu-Sawicki index: 1 (cubic scalaron equation) or 2 (quartic)
+    fR_n: int = 1
+    # "newton": three float32 Newton steps from the current value per
+    # scalaron cell update (the sweep kernel on the card); "exact": the
+    # float64 closed-form roots, in plain torch
+    fR_root_solver: str = "newton"
+    # multigrid cycle type for the linear and FAS solves: V, F or W
     multigrid_cycle: str = "V"
     mond_function: str = "simple"
     mond_alpha: float = 1.0
@@ -89,6 +95,8 @@ def config_from_param(param) -> SolverConfig:
         gradient_stencil_order=int(param["gradient_stencil_order"]),
         Npre=int(get("Npre", 2)),
         Npost=int(get("Npost", 1)),
+        fR_n=int(get("fR_n", 1)),
+        fR_root_solver=str(get("fR_root_solver", "newton")).casefold(),
         multigrid_cycle=str(get("multigrid_cycle", "V")).upper(),
         mond_function=str(get("mond_function", "simple")).casefold(),
         mond_alpha=float(get("mond_alpha", 1.0)),
@@ -98,11 +106,6 @@ def config_from_param(param) -> SolverConfig:
             get("pm_precision_widened", "bf16-gather")).casefold(),
         lazy_drift=int(get("lazy_drift", 3)),
     )
-    if cfg.theory == "fr":
-        raise NotImplementedError(
-            f"theory={cfg.theory!r}: the PyTorch port runs {_THEORIES}; "
-            + _FR_SLICE
-        )
     if cfg.theory not in _THEORIES:
         raise NotImplementedError(
             f"theory {cfg.theory!r}, should be newton, parametrized, mond "
@@ -119,6 +122,12 @@ def config_from_param(param) -> SolverConfig:
             "MOND additional field requires multigrid or fft_7pt "
             f"(got {cfg.linear_newton_solver!r})"
         )
+    if cfg.theory == "fr" and cfg.fR_n not in (1, 2):
+        raise NotImplementedError(
+            f"fR_n={cfg.fR_n}: f(R) Hu-Sawicki runs fR_n = 1 or 2")
+    if cfg.fR_root_solver not in _FR_ROOT_SOLVERS:
+        raise ValueError(f"fR_root_solver={cfg.fR_root_solver!r}, should be "
+                         "newton or exact")
     if cfg.multigrid_cycle not in ("V", "F", "W"):
         raise ValueError(f"multigrid_cycle={cfg.multigrid_cycle!r}, should "
                          "be V, F or W")
@@ -145,6 +154,10 @@ class DynScalars(NamedTuple):
     om_m: float
     mu_z: float  # parametrized mu(z); 1 otherwise
     epsrel: float
+    fR_f1: float  # f(R): scalaron source f1 density + f2
+    fR_f2: float
+    fR_q: float  # f(R): the scalaron equation's constant term
+    fR_half_c2: float  # f(R): the fifth-force factor
     mond_g0: float
     potential_scaling: float
 
@@ -155,9 +168,10 @@ def _f32(x) -> float:
 
 def compute_dynamics(param) -> DynScalars:
     """Host-side (float64) per-step scalars, as in
-    ``pysco_tpu.solver.compute_dynamics``: parametrized mu(z), MOND's g0
-    converted to box units and scaled by aexp, and the growth rescaling of
-    the previous potential (``potential_scaling``, set by the run loop)."""
+    ``pysco_tpu.solver.compute_dynamics``: parametrized mu(z), the f(R)
+    background constants, MOND's g0 converted to box units and scaled by
+    aexp, and the growth rescaling of the previous potential
+    (``potential_scaling``, set by the run loop)."""
     aexp = float(param["aexp"])
     om_m = float(param["Om_m"])
     theory = str(param["theory"]).casefold()
@@ -175,6 +189,21 @@ def compute_dynamics(param) -> DynScalars:
                + om_lambda * evolution_term)
         )
         mu_z = 1.0 + float(param["parametrized_mu0"]) * omega_lambda_z / om_lambda
+    fR_f1 = fR_f2 = fR_q = fR_half_c2 = 0.0
+    if theory == "fr":
+        om_lambda = float(param["Om_lambda"])
+        Rbar = 3 * om_m * aexp ** -3 + 12 * om_lambda
+        Rbar0 = 3 * om_m + 12 * om_lambda
+        fR_a = (
+            -(aexp ** 2)
+            * (Rbar0 / Rbar) ** (int(param["fR_n"]) + 1)
+            * 10.0 ** (-float(param["fR_logfR0"]))
+        )
+        c2 = (C_KMS * param["unit_t"] / (param["unit_l"] * aexp)) ** 2
+        fR_f1 = (aexp * om_m / (c2 * 6)) / (-fR_a)
+        fR_f2 = (Rbar / 3 * aexp ** 4 - om_m * aexp) / (6 * c2) / (-fR_a)
+        fR_q = (-(aexp ** 4) * Rbar / (18 * c2)) / (-fR_a)
+        fR_half_c2 = 0.5 * (-fR_a) * c2
     mond_g0 = 0.0
     if theory == "mond":
         mond_g0 = (
@@ -185,7 +214,9 @@ def compute_dynamics(param) -> DynScalars:
     get = param.get if hasattr(param, "get") else param.__getitem__
     return DynScalars(
         aexp=_f32(aexp), om_m=_f32(om_m), mu_z=_f32(mu_z),
-        epsrel=_f32(get("epsrel", 1e-2)), mond_g0=_f32(mond_g0),
+        epsrel=_f32(get("epsrel", 1e-2)), fR_f1=_f32(fR_f1),
+        fR_f2=_f32(fR_f2), fR_q=_f32(fR_q), fR_half_c2=_f32(fR_half_c2),
+        mond_g0=_f32(mond_g0),
         potential_scaling=_f32(get("potential_scaling", 1.0)),
     )
 
@@ -240,11 +271,36 @@ def _newton_rhs(density, dyn: DynScalars):
     return f1 * (density - 1.0)
 
 
+def _scalaron(cfg: SolverConfig, density, u, dyn: DynScalars,
+              first_call: bool):
+    """The f(R) scalaron u: an FAS solve of the cubic (n = 1) or quartic
+    (n = 2) equation with source f1 density + f2, from the previous u
+    (not rescaled between steps) or, on the first call, the
+    zero-neighbour root; to epsrel times the truncation error of the
+    starting u."""
+    dens_term = dyn.fR_f1 * density + dyn.fR_f2
+    exact_root = cfg.fR_root_solver == "exact"
+    if cfg.fR_n == 1:
+        ops = multigrid.fas_ops_cubic(dyn.fR_q, exact_root)
+        init = cubic.initialise_potential
+    else:
+        ops = multigrid.fas_ops_quartic(dyn.fR_q, exact_root)
+        init = quartic.initialise_potential
+    if first_call:
+        u = init(dens_term, dyn.fR_q)
+    tolerance = np.float32(dyn.epsrel) * np.float32(
+        float(ops.truncation_error(u, dens_term)))
+    return multigrid.FAS(u, dens_term, ops, cfg.ncoarse, cfg.Npre,
+                         cfg.Npost, tolerance, cfg.multigrid_cycle)
+
+
 def _additional_field(cfg: SolverConfig, density, u, dyn: DynScalars,
                       first_call: bool):
-    """The extra field of a modified theory: for MOND, the Newtonian
-    potential (multigrid from the previous u, or the exact 7-point FFT
-    solve)."""
+    """The extra field of a modified theory: the f(R) scalaron; for MOND,
+    the Newtonian potential (multigrid from the previous u, or the exact
+    7-point FFT solve)."""
+    if cfg.theory == "fr":
+        return _scalaron(cfg, density, u, dyn, first_call)
     if cfg.theory != "mond":
         return u
     rhs_newton = _newton_rhs(density, dyn)
@@ -271,13 +327,22 @@ def _solve_fields(cfg: SolverConfig, first_call: bool, save_pk: bool,
     else:
         rhs = _newton_rhs(density, dyn)
     del density
+    order = cfg.gradient_stencil_order
     if cfg.linear_newton_solver == "full_fft":
         force = _fft_force(cfg, rhs)
         if leading:
             force = force.movedim(-1, 0).contiguous()
+        if cfg.theory == "fr":
+            force = force + mesh.derivative_fR(
+                torch.zeros_like(rhs), u, dyn.fR_half_c2, cfg.fR_n, order,
+                leading)
         return force, potential, u, pk
     potential = _linear_solve(cfg, rhs, potential, dyn, first_call)
-    force = mesh.derivative(potential, cfg.gradient_stencil_order, leading)
+    if cfg.theory == "fr":
+        force = mesh.derivative_fR(potential, u, dyn.fR_half_c2, cfg.fR_n,
+                                   order, leading)
+    else:
+        force = mesh.derivative(potential, order, leading)
     return force, potential, u, pk
 
 
@@ -406,9 +471,11 @@ def particles_to_rows(cfg: SolverConfig, *arrays):
 def empty_fields(cfg: SolverConfig, device):
     """Potential and additional-field grids before the first call; the
     Newtonian theories have no additional field, so their ``u`` is a
-    token, and MOND's is its Newtonian potential, a full grid."""
+    token; f(R)'s is the scalaron and MOND's the Newtonian potential,
+    full grids."""
     n = cfg.ncells_1d
-    u_shape = (n, n, n) if cfg.theory == "mond" else (1, 1, 1)
+    u_shape = (1, 1, 1) if cfg.theory in ("newton", "parametrized") else (
+        n, n, n)
     return (torch.zeros((n, n, n), dtype=F32, device=device),
             torch.zeros(u_shape, dtype=F32, device=device))
 
@@ -420,8 +487,9 @@ def state_from_arrays(cfg: SolverConfig, position, velocity, tstarts,
     ``position``/``velocity`` are (4, N_up) columns or (npart, 3) rows
     (rows become columns for the tiled engine); ``tstarts`` may be None
     (a sort comes first); ``potential`` and ``u`` are the JAX package's
-    fields (MOND's ``u`` a full grid). Returns (position, velocity, tstarts,
-    potential, u).
+    fields (the f(R) scalaron and MOND's Newtonian potential full grids,
+    the Newtonian theories' a (1, 1, 1) token). Returns (position,
+    velocity, tstarts, potential, u).
     """
     position = np.asarray(position, np.float32)
     velocity = np.asarray(velocity, np.float32)

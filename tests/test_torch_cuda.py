@@ -264,3 +264,83 @@ def test_multigrid_run_reproducible(cuda, tmp_path):
         np.testing.assert_array_equal(x, y)
     for x, y in zip(outs[0][1], outs[1][1]):
         np.testing.assert_array_equal(x, y)
+
+
+# ---------------------------------------------------------------------------
+# The f(R) scalaron sweep (kernel 4) and the f(R) path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [4, 16, 32])
+def test_scalaron_half_sweep_matches_twin(cuda, n):
+    """Kernel 4 against its twin, bitwise (--fmad=false, IEEE division),
+    on well-conditioned inputs: n = 1 and 2, scalar and plane c0, both
+    colours."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(n)
+    u0 = 0.2 + 0.003 * torch.randn((n, n, n), generator=gen,
+                                   device=cuda).abs()
+    b = 0.5 * torch.randn((n, n, n), generator=gen, device=cuda)
+    red, black = laplacian.pack_rb(u0)
+    hb = laplacian.pack_rb(b * float(np.float32(1 / (n * n))))
+    for power, q, scale in ((2, -0.1, 1e-3), (3, -0.05, 1e-4)):
+        rhs = laplacian.pack_rb(scale * torch.randn((n, n, n), generator=gen,
+                                                    device=cuda))
+        c0 = float(np.float32(1 / (n * n)) * np.float32(q))
+        for to_red, c in ((True, 0), (False, 1)):
+            src, dst = (black, red) if to_red else (red, black)
+            for coef in (c0, c0 - rhs[c]):
+                before = stencil.LAUNCHES["scalaron_half_sweep"]
+                got = stencil.scalaron_half_sweep(src, dst, hb[c], coef,
+                                                  to_red, 1.25, power)
+                assert stencil.LAUNCHES["scalaron_half_sweep"] == before + 1
+                want = stencil.scalaron_half_sweep_plain(
+                    src, dst, hb[c], coef, to_red, 1.25, power)
+                assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="n_power"):
+        stencil.scalaron_half_sweep(black, red, hb[0], c0, True, 1.25, 4)
+    with pytest.raises(ValueError, match="expected shape"):
+        stencil.scalaron_half_sweep(black, red, hb[0], u0, True, 1.25, 2)
+
+
+def test_fr_run_reproducible(cuda, tmp_path):
+    """An f(R) n = 1 multigrid run twice on the card (device ICs): bitwise
+    equal final snapshots and P(k), and every kernel, the scalaron sweep
+    among them, launched on every step."""
+    from pysco_tpu_torch import ic_device
+
+    pk_file = tmp_path / "pk.dat"
+    write_power_spectrum_table(str(pk_file))
+    param = {
+        "theory": "fr", "fR_n": 1, "fR_logfR0": 5, "H0": 72,
+        "Om_m": 0.25733, "T_cmb": 2.726, "N_eff": 3.044, "w0": -1.0,
+        "wa": 0.0, "boxlen": 100, "ncoarse": 5, "npart": 32 ** 3,
+        "z_start": 49, "seed": 42, "position_ICS": "center",
+        "fixed_ICS": False, "paired_ICS": False, "dealiased_ICS": False,
+        "power_spectrum_file": str(pk_file), "initial_conditions": "2LPT",
+        "output_snapshot_format": "npz", "z_out": "[20]",
+        "save_power_spectrum": "yes", "integrator": "leapfrog",
+        "mass_scheme": "CIC", "Courant_factor": 1.0,
+        "max_aexp_stepping": 10, "linear_newton_solver": "multigrid",
+        "gradient_stencil_order": 5, "verbose": 0,
+    }
+    assert ic_device.supported(param)
+    outs = []
+    for tag in ("a", "b"):
+        base = tmp_path / tag
+        stencil.reset_launches()
+        tiled_pm.reset_launches()
+        recs = pysco_tpu_torch.run(dict(param, base=str(base)), device="cuda")
+        prev = dict.fromkeys(recs[0].launches, 0)
+        for r in recs:
+            for k, v in r.launches.items():
+                assert v > prev[k], (r.nsteps, k)
+            prev = dict(r.launches)
+            assert abs(r.mean_additional - 1.0) < 0.1
+        snap = iostream.read_snapshot_particles_npz(
+            glob.glob(f"{base}/output_00001/particles_*.npz")[0])
+        pks = [np.loadtxt(f) for f in sorted(glob.glob(f"{base}/power/*"))]
+        outs.append((snap, pks))
+    for x, y in zip(outs[0][0], outs[1][0]):
+        np.testing.assert_array_equal(x, y)
+    for x, y in zip(outs[0][1], outs[1][1]):
+        np.testing.assert_array_equal(x, y)

@@ -229,7 +229,7 @@ def test_state_from_arrays_round_trip():
 
 
 def test_unsupported_configs_raise():
-    for kw, what in ((dict(theory="fr"), "f\\(R\\) slice"),
+    for kw, what in ((dict(theory="fr", fR_n=3), "fR_n"),
                      (dict(theory="mond", linear_newton_solver="fft"),
                       "multigrid or fft_7pt"),
                      (dict(linear_newton_solver="sor"),
@@ -241,13 +241,18 @@ def test_unsupported_configs_raise():
         solver.config_from_param(_param(pm_precision_widened="fp8"))
     with pytest.raises(ValueError, match="multigrid_cycle"):
         solver.config_from_param(_param(multigrid_cycle="X"))
+    with pytest.raises(ValueError, match="fR_root_solver"):
+        solver.config_from_param(_param(theory="fr", fR_root_solver="cbrt"))
     # the JAX package's precision keys are accepted for config parity
     for mode in ("f32", "bf16", "bf16x3", "bf16-gather"):
         solver.config_from_param(_param(pm_precision=mode,
                                         pm_precision_widened=mode))
-    # multigrid and QUMOND are this port's now
+    # multigrid, QUMOND and f(R) n = 1, 2 are this port's now
     for kw in (dict(linear_newton_solver="multigrid", multigrid_cycle="w"),
                dict(theory="mond", linear_newton_solver="multigrid"),
-               dict(theory="mond", linear_newton_solver="fft_7pt")):
+               dict(theory="mond", linear_newton_solver="fft_7pt"),
+               dict(theory="fr", fR_n=1, linear_newton_solver="multigrid"),
+               dict(theory="fr", fR_n=2, linear_newton_solver="fft",
+                    fR_root_solver="exact")):
         cfg = solver.config_from_param(_param(**kw))
         assert cfg.linear_newton_solver == kw["linear_newton_solver"]

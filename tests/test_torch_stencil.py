@@ -92,6 +92,58 @@ def test_half_sweep_twin_matches_pallas(to_red, with_rhs):
                                atol=2e-6)
 
 
+def _scalaron_inputs(n, seed):
+    """tests/test_pallas_stencil.py's well-conditioned scalaron state:
+    u0 ~ 0.2 with |p| << 3 u0^2, so a float32 ulp in the neighbour sum
+    cannot flip the Newton trajectory (near-critical cells amplify ulps
+    without bound, a property of the equation)."""
+    x, b, _ = _fields(n, seed)
+    u0 = (np.abs(x) * np.float32(0.003) + np.float32(0.2)).astype(np.float32)
+    return u0, (b * np.float32(0.1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("to_red", [True, False])
+@pytest.mark.parametrize("plane", [False, True])
+@pytest.mark.parametrize("n_power,q,rhs_scale", [(2, -0.1, 1e-3),
+                                                 (3, -0.05, 1e-4)])
+def test_scalaron_half_sweep_twin_matches_pallas(n_power, q, rhs_scale,
+                                                 plane, to_red):
+    """Kernel 4's twin against pallas_stencil.scalaron_half_sweep (the
+    f(R) n = 1 and n = 2 sweeps; c0 a scalar, or a plane with the FAS
+    rhs folded in)."""
+    n = 16
+    u0, b = _scalaron_inputs(n, 3)
+    red, black = lap.pack_rb(torch.as_tensor(u0))
+    hb = lap.pack_rb(torch.as_tensor(np.float32(1 / (n * n)) * b))
+    c = 0 if to_red else 1
+    src, dst = (black, red) if to_red else (red, black)
+    c0 = float(np.float32(1 / (n * n)) * np.float32(q))
+    if plane:
+        rhs = (rhs_scale * np.random.default_rng(5).standard_normal(
+            (n, n, n))).astype(np.float32)
+        coef = c0 - lap.pack_rb(torch.as_tensor(rhs))[c]
+        jcoef = _j(coef.numpy())
+    else:
+        coef, jcoef = c0, jnp.float32(c0)
+    got = stencil.scalaron_half_sweep(src, dst, hb[c], coef, to_red, 1.25,
+                                      n_power)
+    want = np.array(ps.scalaron_half_sweep(
+        _j(src.numpy()), _j(dst.numpy()), _j(hb[c].numpy()), jcoef, to_red,
+        1.25, n_power))
+    # the same expressions; XLA contracts some products and sums into
+    # FMAs where the twin rounds twice: at most 4 float32 ulps, 1e-6
+    ulps = np.abs(got.numpy() - want) / np.spacing(np.abs(want))
+    assert ulps.max() <= 4, ulps.max()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
+
+
+def test_scalaron_half_sweep_rejects_other_devices():
+    x = torch.zeros((8, 4, 8), device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        stencil.scalaron_half_sweep(x, torch.zeros((8, 4, 8)), x, 0.0, True,
+                                    1.25, 2)
+
+
 @pytest.mark.parametrize("with_rhs", [False, True])
 @pytest.mark.parametrize("kind,q", KINDS)
 def test_residual_norm2_twin_matches_pallas(kind, q, with_rhs):
