@@ -10,13 +10,18 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    with nvcc and print the build time and ptxas report;
 3. kernels vs their plain PyTorch twins on the card: deposit and gather
    for NGP/CIC/TSC at drift 0 and 3, uniform and clustered particles, on
-   128^3, 256^3 and (z-blocked tiles) 512^3 grids; two deposits must be
-   bitwise equal; kernel and twin times at 256^3 particles on 256^3;
+   128^3, 256^3 and (z-blocked tiles) 512^3 grids, and the deposit with
+   every base on an edge of its window; two deposits must be bitwise
+   equal; kernel and twin times at 256^3 particles on 256^3, with the
+   one-call yardsticks (index_add_ for the deposit, grid_sample for the
+   gather);
    then the multigrid stencil kernels (half-sweep, f(R) scalaron
    half-sweep for n = 1 and 2 with a scalar and a plane coefficient,
    residual norm, fused restriction, prolongation) at n = 16, 128, 256
    and 512, every residual kind with and without rhs, two residual norms
-   bitwise equal; kernel and twin times at 256^3;
+   bitwise equal; kernel and twin times at 256^3, the scalaron sweep's
+   at 512^3 too (random and converged cells); the deposit's device time
+   split between its kernel and the torch zeroing and fold;
 4. golden: the full-horizon configuration of
    ``tests/test_full_run_fidelity.py`` through ``pysco_tpu_torch.run``
    must match ``tests/golden_pk_32.json`` within 1e-4; two P(k) of one
@@ -169,6 +174,78 @@ def _state(torch, tp, n, m, scheme, drift, clustered, gen):
     return ps, ts
 
 
+def _edge_state(torch, tp, ps, ts, m, scheme, drift, gen):
+    """Every real column of a fresh sort moved so that its base cell sits on
+    an edge of its tile's window: x at -drift, 0 or +drift planes; y at
+    -drift, the live window's last row (7 + drift) or the envelope's
+    (wy_pad - w - drift); z likewise when z-blocked."""
+    g = tp._geometry(m, scheme, drift)
+    n_up = ps.shape[1]
+    tile = tp._tile_of_columns(ts, n_up).long()
+    real = (ps[0] < tp.SENTINEL_MIN) & (tile < g.ntiles)
+
+    def pick(options):
+        i = torch.randint(0, len(options), (n_up,), generator=gen,
+                          device="cuda")
+        return torch.tensor(options, device="cuda")[i]
+
+    plane, yb = tile // (g.nby * g.nbz), (tile // g.nbz) % g.nby
+    by = yb * tp.YB + pick([-drift, 7 + drift, g.wy_pad - g.w - drift])
+    if g.nbz > 1:
+        bz = (tile % g.nbz) * g.zbs + pick(
+            [-drift, g.zbs - 1 + drift, g.wz_pad - g.w - drift])
+    else:
+        bz = torch.randint(0, m, (n_up,), generator=gen, device="cuda")
+    off = 1.5 if scheme == "tsc" else 0.75  # the base cell is the target
+    out = ps.clone()
+    for axis, base in ((0, plane + pick([-drift, 0, drift])), (1, by),
+                       (2, bz)):
+        out[axis] = torch.where(real, ((base + off) % m) / m, out[axis])
+    return out
+
+
+def _deposit_check(torch, tp, ps, ts, m, scheme, drift, tag):
+    """Two deposits bitwise equal and within 1e-5 x max of the twin, which
+    holds the same mass; returns (|kernel - twin|, max count, mass)."""
+    grid = tp.deposit(ps, ts, m, scheme, drift)
+    again = tp.deposit(ps, ts, m, scheme, drift)
+    twin = tp.deposit_plain(ps, ts, m, scheme, drift)
+    torch.cuda.synchronize()
+    check(torch.equal(grid, again), f"deposit not bitwise reproducible ({tag})")
+    d_err = float((grid - twin).abs().max())
+    scale = float(twin.abs().max())
+    mass = float(grid.double().sum())
+    check(d_err <= 1e-5 * scale,
+          f"deposit vs twin {d_err:.3e} > 1e-5 x {scale:.3e} ({tag})")
+    twin_mass = float(twin.double().sum())
+    check(abs(mass - twin_mass) <= 1e-6 * max(twin_mass, 1.0),
+          f"deposit mass {mass} != twin's {twin_mass} ({tag})")
+    return d_err, scale, mass
+
+
+def _deposit_split(torch, tp, ps, ts, m, scheme, drift, tag, reps=3):
+    """Device time of a deposit call by torch.profiler: the kernel's
+    launches against the zeroing of the padded grid and its fold (logged
+    only; the profiler's own clock)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tp.deposit(ps, ts, m, scheme, drift)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            tp.deposit(ps, ts, m, scheme, drift)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3
+    kern = sum(e.time_range.elapsed_us() for e in dev
+               if "deposit_tiles" in e.name) / reps / 1e3
+    log(f"[{tag}] {m}^3 {scheme} drift={drift} deposit, device time by "
+        f"torch.profiler: {total:.3f} ms a call, the kernel {kern:.3f} ms, "
+        f"zeroing and fold {total - kern:.3f} ms")
+
+
 def time_ms(torch, fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
@@ -196,20 +273,10 @@ def phase_kernels(torch):
                 for clustered in (False, True):
                     ps, ts = _state(torch, tp, n, m, scheme, drift,
                                     clustered, gen)
-                    grid = tp.deposit(ps, ts, m, scheme, drift)
-                    again = tp.deposit(ps, ts, m, scheme, drift)
-                    twin = tp.deposit_plain(ps, ts, m, scheme, drift)
-                    torch.cuda.synchronize()
-                    check(torch.equal(grid, again),
-                          f"deposit not bitwise reproducible (m={m} "
-                          f"{scheme} drift={drift})")
-                    d_err = float((grid - twin).abs().max())
-                    scale = float(twin.abs().max())
-                    mass = float(grid.double().sum())
-                    check(d_err <= 1e-5 * scale,
-                          f"deposit vs twin {d_err:.3e} > 1e-5 x {scale:.3e}"
-                          f" (m={m} {scheme} drift={drift} "
-                          f"clustered={clustered})")
+                    d_err, scale, mass = _deposit_check(
+                        torch, tp, ps, ts, m, scheme, drift,
+                        f"m={m} {scheme} drift={drift} "
+                        f"clustered={clustered}")
                     check(abs(mass - n) <= 1e-6 * n,
                           f"deposit mass {mass} != {n} (m={m} {scheme} "
                           f"drift={drift})")
@@ -228,6 +295,28 @@ def phase_kernels(torch):
                         f"{d_err:.2e} (max count {scale:.3e}), mass "
                         f"{mass:.1f}; gather |k-twin| {g_err:.2e}")
         del field
+    # every base on an edge of its window (the spill path past the live
+    # window included), 128^3 particles on 128^3 and (z-blocked) 512^3
+    for m in (128, 512):
+        for scheme in SCHEMES:
+            for drift in (0, 3):
+                ps, ts = _state(torch, tp, 128 ** 3, m, scheme, 0, False,
+                                gen)
+                ps = _edge_state(torch, tp, ps, ts, m, scheme, drift, gen)
+                check(int(tp.drift_violations(ps, ts, m, scheme, drift)) == 0,
+                      "edge test state breaks its envelope")
+                d_err, scale, mass = _deposit_check(
+                    torch, tp, ps, ts, m, scheme, drift,
+                    f"edge m={m} {scheme} drift={drift}")
+                err["deposit"] = max(err["deposit"], d_err)
+                log(f"[3 kernels] edge m={m} {scheme} drift={drift}: deposit"
+                    f" |k-twin| {d_err:.2e} (max count {scale:.3e}), mass "
+                    f"{mass:.1f}")
+    for m, scheme, drift in ((256, "cic", 0), (256, "tsc", 3), (512, "cic", 0),
+                             (512, "cic", 1), (512, "tsc", 3)):
+        log(f"[3 kernels] deposit shared memory {m}^3 {scheme} drift={drift}:"
+            f" {tp._deposit_smem(tp._geometry(m, scheme, drift))} B a block "
+            f"(live window {tp._geometry(m, scheme, drift).live_window})")
     # times at the main path's shapes: 256^3 particles on the 256^3 grid
     m, n = 256, 256 ** 3
     times = {}
@@ -245,6 +334,8 @@ def phase_kernels(torch):
                 field, ps, ts, scheme, drift)),
         }
         times[(scheme, drift)] = t
+        if (scheme, drift) == ("cic", 0):
+            _deposit_split(torch, tp, ps, ts, m, scheme, drift, "3 times")
         log(f"[3 times] 256^3 particles, 256^3 grid, {scheme} drift={drift}:"
             f" deposit {t['deposit']:.3f} ms (twin "
             f"{t['deposit_plain']:.3f}), gather {t['gather']:.3f} ms (twin "
@@ -280,11 +371,62 @@ def _particle_meta(torch, tp, ps, ts, field, m, n, t):
     lib = time_ms(torch, lambda: torch.zeros(
         cells, device="cuda").index_add_(0, idx, w))
     del idx, w
+    g_lib = _grid_sample_yardstick(torch, tp, ps, ts, field, m)
     log(f"[3 bounds] 256^3 CIC drift 0: deposit bound {dep[0]:.4f} ms "
         f"({dep[1]}), index_add_ {lib:.3f} ms; gather bound {gat[0]:.4f} "
-        f"ms ({gat[1]})")
+        f"ms ({gat[1]}), grid_sample {g_lib:.3f} ms")
     return {"deposit": {"bound": dep, "library_ms": lib},
-            "gather": {"bound": gat, "library_ms": None}}
+            "gather": {"bound": gat, "library_ms": g_lib}}
+
+
+def _grid_sample_yardstick(torch, tp, ps, ts, field, m):
+    """The gather's one-call yardstick: trilinear ``grid_sample``
+    (align_corners=False) of the three-component field padded by one
+    periodic cell a side, at the real columns' (z, y, x) positions
+    normalised into the padded grid: CIC cell i + 1 of the pad has its
+    centre at pixel i + 1, so a position x (cells) sits at pixel x + 1/2.
+    The padding and the coordinates are built outside the timed call, as
+    the deposit's index_add_ pairs are. Before it is timed it must meet
+    gather_vec_cl_plain within 1e-5 x max on a smooth field (the low modes
+    of the box): grid_sample unnormalises its coordinate in float32, about
+    3e-5 of a cell at 256^3, which a white-noise field turns into errors
+    above 1e-5 x max (logged, not checked)."""
+    import math
+
+    fn = torch.nn.functional
+    real = ps[0] < tp.SENTINEL_MIN
+    xs = ps[:3, real].double() * m
+    coords = (2.0 * (xs + 0.5) + 1.0) / (m + 2) - 1.0  # (x, y, z) rows
+    grid = coords.flip(0).T.float().reshape(1, 1, 1, -1, 3).contiguous()
+    del xs, coords
+
+    def sample(f):
+        pad = fn.pad(f[None], (1, 1, 1, 1, 1, 1), mode="circular")
+        return pad, lambda: fn.grid_sample(pad, grid, mode="bilinear",
+                                           padding_mode="zeros",
+                                           align_corners=False)
+
+    def error(f):
+        _, call = sample(f)
+        got = call().reshape(3, -1)
+        want = tp.gather_vec_cl_plain(f, ps, ts, "cic")[:3, real]
+        return float((got - want).abs().max()), float(want.abs().max())
+
+    a = torch.arange(m, device="cuda", dtype=torch.float32) * (2 * math.pi / m)
+    x, y, z = torch.meshgrid(a, a, a, indexing="ij")
+    smooth = torch.stack([torch.sin(x + 2 * y), torch.cos(y - z),
+                          torch.sin(3 * z + x)])
+    del x, y, z
+    err, scale = error(smooth)
+    check(err <= 1e-5 * scale, f"grid_sample vs gather twin {err:.3e} > "
+          f"1e-5 x {scale:.3e} (smooth field, 256^3 CIC drift 0)")
+    del smooth
+    err_r, scale_r = error(field)
+    log(f"[3 bounds] grid_sample vs gather_vec_cl_plain, 256^3 CIC drift 0:"
+        f" {err:.2e} of max {scale:.3e} on a smooth field (bound 1e-5 x "
+        f"max); {err_r:.2e} of max {scale_r:.3e} on the white-noise field")
+    _, call = sample(field)
+    return time_ms(torch, call)
 
 
 def _grids(torch, n, gen):
@@ -321,7 +463,8 @@ SCALARON_CASES = ((2, -0.1, 1e-3), (3, -0.05, 1e-4))
 
 def phase_scalaron_kernel(torch, np, lap, st, n, gen):
     """Kernel 4 against its twin at one size: n = 1 and 2, scalar and
-    plane c0, both colours. Returns the largest |kernel - twin|."""
+    plane c0, both colours, bitwise (--fmad=false, IEEE division). Returns
+    the largest |kernel - twin|."""
     (red, black), hb, rhs = _scalaron_inputs(torch, np, lap, n, gen)
     worst = 0.0
     for power, q, scale in SCALARON_CASES:
@@ -335,9 +478,10 @@ def phase_scalaron_kernel(torch, np, lap, st, n, gen):
                                              1.25, power)
                 want = st.scalaron_half_sweep_plain(src, dst, hb[c], coef,
                                                     to_red, 1.25, power)
-                e = _agree("scalaron_half_sweep", got, want, 2e-6,
-                           f"n={n} power={power} plane={plane} "
-                           f"red={to_red}")
+                tag = f"n={n} power={power} plane={plane} red={to_red}"
+                e = _agree("scalaron_half_sweep", got, want, 2e-6, tag)
+                check(torch.equal(got, want),
+                      f"scalaron_half_sweep not bitwise its twin ({tag})")
                 worst = max(worst, e)
                 log(f"[3 stencil] n={n} scalaron_half_sweep power={power} "
                     f"plane={int(plane)} red={int(to_red)}: |k-twin| "
@@ -446,6 +590,29 @@ def phase_stencil_kernels(torch, np):
             s_black, s_red, s_hb[0], s_plane, True, 1.25, power))
         log(f"[3 stencil times] 256^3 scalaron_half_sweep power={power}: "
             f"scalar c0 {t_s:.3f} ms, plane c0 {t_p:.3f} ms")
+    (b_red, b_black), b_hb, _ = _scalaron_inputs(torch, np, lap, 512, gen)
+    b_c0 = float(np.float32(np.float32(1.0 / 512 ** 2) * np.float32(-0.1)))
+    t_b = time_ms(torch, lambda: st.scalaron_half_sweep(
+        b_black, b_red, b_hb[0], b_c0, True, 1.25, 2))
+    # converged cells: a uniform u0 that is its own Newton root, f = 0 at
+    # every step (the late V-cycles of a solve)
+    u0, hbv = np.float32(1.0216), np.float32(3e-6)
+    nb0 = np.float32(0.0)
+    for _ in range(6):  # the kernel's neighbour sum, in its order
+        nb0 = np.float32(nb0 + np.float32(u0 * u0))
+    p0 = np.float32(hbv - np.float32(np.float32(1.0 / 6.0) * nb0))
+    f0 = float(np.float32(u0 * np.float32(np.float32(u0 * u0) + p0)))
+    b_red.fill_(float(u0))
+    b_hb[0].fill_(float(hbv))
+    t_c = time_ms(torch, lambda: st.scalaron_half_sweep(
+        b_red, b_red, b_hb[0], -f0, True, 1.25, 2))
+    check(torch.equal(st.scalaron_half_sweep(b_red, b_red, b_hb[0], -f0,
+                                             True, 1.25, 2), b_red),
+          "converged scalaron cells moved")
+    log(f"[3 stencil times] 512^3 scalaron_half_sweep power=2: scalar c0 "
+        f"{t_b:.3f} ms, converged cells {t_c:.3f} ms (bound "
+        f"{bound(4 * b_red.numel() * 4, 44 * b_red.numel())[0]:.4f} ms)")
+    del b_red, b_black, b_hb
     for kind, q in RESIDUAL_KINDS[1:]:
         bb = None if kind == "laplacian" else b
         t_n = time_ms(torch, lambda: st.residual_norm2(kind, x, bb, q=q))
@@ -805,6 +972,7 @@ def _fr_components(torch, np, pos, vel, param, n, scheme, ncoarse):
     hb_r, _ = lap.pack_rb(float(np.float32(1.0 / (n * n))) * b)
     c0 = float(np.float32(np.float32(1.0 / (n * n))
                           * np.float32(dyn.fR_q)))
+    _deposit_split(torch, tp, ps, ts, n, scheme, 1, "10 fr components")
     comps = {
         "tile sort": lambda: tp.sort_particles(pc, vc, n, scheme),
         "deposit (drift 0)": lambda: tp.deposit(ps, ts, n, scheme),

@@ -7,33 +7,45 @@
 // y-block and, from 512^3 up, a 128-cell z-block; particles are
 // tile-sorted, tile t owning columns [starts[t], starts[t+1])).
 //
-// The window -- (w + 2 drift) x-planes, 8 + w - 1 + 2 drift y-rows rounded
-// up to 8, the full z line or the z-block plus its spill -- lives in
-// shared memory (147 KB for TSC at drift 3 on a 256^3 grid; the dynamic
-// shared-memory opt-in allows 227 KB). Each thread owns whole z columns of
-// the window and walks the tile's particles in column order, adding the
-// ones whose support covers its column. Every cell's sum therefore has one
-// fixed order, with no atomics. The windows are then added into the padded
-// grid in a fixed sequence of launches, each one residue class of tiles
-// whose windows cannot overlap (x-plane mod the window's x extent, y-block
-// and z-block mod the blocks the window spans). A deposit is thus bitwise
-// the same on every run, as the reference's fixed-order deposit is. The
-// periodic fold of the pads is left to PyTorch (tiled_pm._fold_padded).
-//
 // The acceptance envelope is the TPU kernel's: with drift = k a particle
 // lands exactly if its base lies within k cells of its (stale) tile in x,
-// and within the 8-rounded y window and 128-rounded z window; the cells of
-// a particle beyond that are dropped, and tiled_pm.drift_violations counts
-// the particle.
+// and within the 8-rounded y window and 128-rounded z window (wy_pad,
+// wz_pad); the cells of a particle beyond that are dropped, and
+// tiled_pm.drift_violations counts the particle.
 //
-// What bounds it on the card: instruction issue, not bytes. Particles are
-// read once (12 B each) and each window is read and written once, but every
-// thread of a block scans every particle of its tile (a shared-memory
-// broadcast and a compare), so the work is (particles x threads); only the
-// w threads whose column a particle touches add to the window. The design
-// buys determinism without atomics with that scan; narrowing it (threads
-// owning (y, z) rows, particles pre-sorted by z inside a tile) is later
-// work.
+// What bounds it on the card: neither bytes nor float32 operations (0.08 ms
+// at 256^3 CIC) but the block's own steps. Per chunk of 512 particles a
+// block stages their weights in shared memory, sorts them, finds the bins
+// and walks them; per tile it zeroes its window and adds it into the
+// padded grid. The design:
+//
+// - Determinism without atomics. Each thread owns whole z columns of the
+//   window and sums every cell of its columns itself, so every cell's sum
+//   has one fixed order: chunks in order, then the bins of window z offset
+//   zl = z, z - 1, ..., z - w + 1 (periodic when the tile spans the z line),
+//   then the particles of a bin in their order in the tile.
+// - A scan of only the particles that touch a column. A chunk is ordered by
+//   its bin with a stable block radix sort (CUB's BlockRadixSort: ranks from
+//   prefix sums in thread order, no atomics), the start of every bin is
+//   found by a binary search of the sorted keys, and the thread of column z
+//   walks only its w bins: particles x w steps a tile, not particles x 256.
+// - The live window only. Shared memory holds (w + 2 drift) x-planes x
+//   (8 + w - 1 + 2 drift) y-rows x (the z line, or zbs + w - 1 + 2 drift
+//   z-cells), the cells a particle that keeps its drift bound can reach,
+//   not the 8- and 128-rounded extents; only those are zeroed and added
+//   into the padded grid, a warp to a z run. A particle of the envelope
+//   that reaches beyond the live window (it broke its drift bound, or a
+//   fresh sort holds it off its tile) adds those cells straight into the
+//   padded grid from the block's first thread, in the chunk's order.
+// - The windows are added into the padded grid in a fixed sequence of
+//   launches, each one residue class of tiles whose padded windows cannot
+//   overlap (x-plane mod the window's x extent, y-block and z-block mod the
+//   blocks the padded window spans), so a plain read-modify-write is safe
+//   and a deposit is bitwise the same on every run, as the reference's
+//   fixed-order deposit is. The periodic fold of the pads is left to
+//   PyTorch (tiled_pm._fold_padded).
+
+#include <cub/block/block_radix_sort.cuh>
 
 #include "tiled_pm.cuh"
 
@@ -44,12 +56,55 @@ using pysco::kSentinelMin;
 using pysco::kYB;
 
 constexpr int kThreads = 256;
-constexpr int kChunk = 256;          // particles staged per pass
-constexpr int kNoParticle = -(1 << 29);  // z offset that matches no column
+constexpr int kItems = 2;                  // particles a thread sorts
+constexpr int kChunk = kThreads * kItems;  // particles staged per pass
+constexpr int kSortScratch = 12288;        // bytes kept for the block sort
+constexpr int kNoParticle = -(1 << 29);    // z offset that matches no column
+constexpr int kSmemLimit = 232448;         // a block's dynamic opt-in
+
+using BlockSort = cub::BlockRadixSort<unsigned, kThreads, kItems, int>;
+static_assert(sizeof(BlockSort::TempStorage) <= kSortScratch,
+              "the block sort needs more scratch: raise kSortScratch here "
+              "and _DEPOSIT_SORT_SCRATCH in ops/tiled_pm.py");
 
 struct DepositGeo {
-  int m, w, drift, wx, wy_pad, wz, zbs, nbz, nby, gy, gz;
+  int m, w, drift, wx, wy_pad, wz_pad, zbs, nbz, nby, gy, gz;
+  int wy, wz;    // the live window's y and z extents
+  int nbins;     // z bins: key zl + w - 1 for zl in [1 - w, wz); nbins = none
+  int key_bits;  // bits of nbins
+  int scratch;   // bytes of the sort scratch / key and bin-start arrays
 };
+
+DepositGeo make_geo(int m, int w, int drift, int wy_pad, int wz_pad, int zbs,
+                    int nbz) {
+  DepositGeo g{};
+  g.m = m;
+  g.w = w;
+  g.drift = drift;
+  g.wx = w + 2 * drift;
+  g.wy_pad = wy_pad;
+  g.wz_pad = wz_pad;
+  g.zbs = zbs;
+  g.nbz = nbz;
+  g.nby = m / kYB;
+  g.gy = m + wy_pad - kYB;
+  g.gz = nbz == 1 ? m : m + wz_pad - zbs;
+  g.wy = kYB + g.wx - 1;
+  g.wz = nbz == 1 ? m : zbs + g.wx - 1;
+  g.nbins = g.wz + w - 1;
+  g.key_bits = 32 - __builtin_clz(static_cast<unsigned>(g.nbins));
+  const int arrays = 4 * (kChunk + g.nbins + 1);
+  g.scratch = ((kSortScratch > arrays ? kSortScratch : arrays) + 15) / 16 * 16;
+  return g;
+}
+
+// Dynamic shared memory of a block: the scratch, the live window, and per
+// staged particle dx, yl, zl, its sorted slot and 3 w weights.
+size_t smem_bytes(const DepositGeo& g) {
+  return static_cast<size_t>(g.scratch) +
+         4 * static_cast<size_t>(g.wx) * g.wy * g.wz +
+         4 * static_cast<size_t>(kChunk) * (4 + 3 * g.w);
+}
 
 // Offset of a base cell from its tile's first cell under a stale sort:
 // the modular offset mapped to [-drift, m - drift), plus drift.
@@ -57,6 +112,21 @@ __device__ __forceinline__ int window_offset(int base, int origin, int m,
                                              int drift) {
   const int raw = (base - origin + 2 * m) % m;
   return (raw >= m - drift ? raw - m : raw) + drift;
+}
+
+__device__ __forceinline__ unsigned bin_key(const DepositGeo& g, int zl) {
+  return (zl > -g.w && zl < g.wz) ? static_cast<unsigned>(zl + g.w - 1)
+                                  : static_cast<unsigned>(g.nbins);
+}
+
+// Whether a staged particle may have cells in the envelope beyond the live
+// window (the spill path checks each cell).
+__device__ __forceinline__ bool beyond_live(const DepositGeo& g, int dx,
+                                            int yl, int zl) {
+  if (zl == kNoParticle || dx >= g.wx) return false;
+  const bool y = yl + g.w > g.wy && yl < g.wy_pad;
+  const bool z = g.nbz > 1 && zl + g.w > g.wz && zl < g.wz_pad;
+  return y || z;
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -72,63 +142,147 @@ deposit_tiles(const float* __restrict__ pos, long long n_up,
   const int start = starts[t], end = starts[t + 1];
   if (end <= start) return;
 
-  extern __shared__ float smem[];
-  const int cells = g.wx * g.wy_pad * g.wz;
-  float* win = smem;
-  int* s_dx = reinterpret_cast<int*>(win + cells);
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto& sort_tmp = *reinterpret_cast<BlockSort::TempStorage*>(smem);
+  unsigned* s_key = reinterpret_cast<unsigned*>(smem);  // after the sort
+  int* s_start = reinterpret_cast<int*>(s_key + kChunk);
+  float* win = reinterpret_cast<float*>(smem + g.scratch);
+  const int rows = g.wx * g.wy;
+  int* s_dx = reinterpret_cast<int*>(win + rows * g.wz);
   int* s_yl = s_dx + kChunk;
   int* s_zl = s_yl + kChunk;
-  float* s_wt = reinterpret_cast<float*>(s_zl + kChunk);  // 9 per particle
+  int* s_ord = s_zl + kChunk;
+  float* s_wt = reinterpret_cast<float*>(s_ord + kChunk);  // 3 w a particle
+  const int nw = 3 * g.w;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int kWarps = kThreads / 32;
+  const int y0 = yb * kYB;
+  const int zoff = g.nbz == 1 ? 0 : zb * g.zbs;
 
-  for (int i = threadIdx.x; i < cells; i += kThreads) win[i] = 0.0f;
+  for (int r = warp; r < rows; r += kWarps) {
+    for (int z = lane; z < g.wz; z += 32) win[r * g.wz + z] = 0.0f;
+  }
 
   for (int c0 = start; c0 < end; c0 += kChunk) {
     const int np = min(kChunk, end - c0);
     __syncthreads();  // window zeroed / previous chunk consumed
-    if (threadIdx.x < np) {
-      const long long c = c0 + threadIdx.x;
-      const float px = pos[c];
-      float* wt = s_wt + 9 * threadIdx.x;
+    bool spill = false;
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int slot = threadIdx.x + j * kThreads;
       int dx = 0, yl = 0, zl = kNoParticle;
-      if (px < kSentinelMin) {
-        const float fm = static_cast<float>(g.m);
-        const int bx = axis_weights(g.w, px * fm, wt);
-        const int by = axis_weights(g.w, pos[n_up + c] * fm, wt + 3);
-        const int bz = axis_weights(g.w, pos[2 * n_up + c] * fm, wt + 6);
-        const int zw = bz < 0 ? bz + g.m : bz;
-        if (g.drift) {
-          dx = window_offset(bx, plane, g.m, g.drift);
-          yl = window_offset(by, yb * kYB, g.m, g.drift);
-        } else {  // fresh sort: the base plane is the tile's
-          yl = (by < 0 ? by + g.m : by) - yb * kYB;
-        }
-        if (g.nbz == 1) {
-          zl = zw;
-        } else {
-          zl = g.drift ? window_offset(zw, zb * g.zbs, g.m, g.drift)
-                       : zw - zb * g.zbs;
+      if (slot < np) {
+        const long long c = c0 + slot;
+        const float px = pos[c];
+        if (px < kSentinelMin) {
+          float* wt = s_wt + nw * slot;
+          const float fm = static_cast<float>(g.m);
+          const int bx = axis_weights(g.w, px * fm, wt);
+          const int by = axis_weights(g.w, pos[n_up + c] * fm, wt + g.w);
+          const int bz =
+              axis_weights(g.w, pos[2 * n_up + c] * fm, wt + 2 * g.w);
+          const int zw = bz < 0 ? bz + g.m : bz;
+          if (g.drift) {
+            dx = window_offset(bx, plane, g.m, g.drift);
+            yl = window_offset(by, y0, g.m, g.drift);
+          } else {  // fresh sort: the base plane is the tile's
+            yl = (by < 0 ? by + g.m : by) - y0;
+          }
+          if (g.nbz == 1) {
+            zl = zw;
+          } else {
+            zl = g.drift ? window_offset(zw, zoff, g.m, g.drift) : zw - zoff;
+          }
+          spill = spill || beyond_live(g, dx, yl, zl);
         }
       }
-      s_dx[threadIdx.x] = dx;
-      s_yl[threadIdx.x] = yl;
-      s_zl[threadIdx.x] = zl;
+      s_dx[slot] = dx;
+      s_yl[slot] = yl;
+      s_zl[slot] = zl;
+    }
+    const bool any_spill = __syncthreads_or(spill);
+
+    // stable sort of the chunk by bin; thread t holds slots t kItems + j
+    unsigned keys[kItems];
+    int vals[kItems];
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      const int slot = threadIdx.x * kItems + j;
+      keys[j] = bin_key(g, s_zl[slot]);
+      vals[j] = slot;
+    }
+    BlockSort(sort_tmp).Sort(keys, vals, 0, g.key_bits);
+    __syncthreads();  // the sort scratch becomes s_key and s_start
+#pragma unroll
+    for (int j = 0; j < kItems; ++j) {
+      s_key[threadIdx.x * kItems + j] = keys[j];
+      s_ord[threadIdx.x * kItems + j] = vals[j];
     }
     __syncthreads();
+    for (int bin = threadIdx.x; bin <= g.nbins; bin += kThreads) {
+      int lo = 0, hi = kChunk;  // first sorted slot with key >= bin
+      while (lo < hi) {
+        const int mid = (lo + hi) >> 1;
+        if (s_key[mid] < static_cast<unsigned>(bin)) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      s_start[bin] = lo;
+    }
+    __syncthreads();
+
     for (int z = threadIdx.x; z < g.wz; z += kThreads) {
+      for (int oz = 0; oz < g.w; ++oz) {
+        int zl = z - oz;
+        if (g.nbz == 1 && zl < 0) zl += g.m;  // the window is the z line
+        const int key = zl + g.w - 1;
+        const int s_end = s_start[key + 1];
+        for (int s = s_start[key]; s < s_end; ++s) {
+          const int p = s_ord[s];
+          const float* wt = s_wt + nw * p;
+          const float wzv = wt[2 * g.w + oz];
+          const int dx = s_dx[p], yl = s_yl[p];
+          for (int a = 0; a < g.w && dx + a < g.wx; ++a) {
+            const float wxa = wt[a];
+            for (int oy = 0; oy < g.w; ++oy) {
+              const int ya = yl + oy;
+              if (ya < 0 || ya >= g.wy) continue;
+              win[((dx + a) * g.wy + ya) * g.wz + z] +=
+                  (wxa * wt[g.w + oy]) * wzv;
+            }
+          }
+        }
+      }
+    }
+
+    if (any_spill && threadIdx.x == 0) {
+      // envelope cells beyond the live window: no other block of this
+      // launch and no live cell of this one reaches them
       for (int p = 0; p < np; ++p) {
-        int oz = z - s_zl[p];
-        if (g.nbz == 1 && oz < 0) oz += g.m;  // the window is the z line
-        if (oz < 0 || oz >= g.w) continue;
-        const float* wt = s_wt + 9 * p;
-        const float wzv = wt[6 + oz];
-        const int dx = s_dx[p], yl = s_yl[p];
+        const int dx = s_dx[p], yl = s_yl[p], zl = s_zl[p];
+        if (!beyond_live(g, dx, yl, zl)) continue;
+        const float* wt = s_wt + nw * p;
         for (int a = 0; a < g.w && dx + a < g.wx; ++a) {
-          const float wxa = wt[a];
           for (int oy = 0; oy < g.w; ++oy) {
             const int ya = yl + oy;
             if (ya < 0 || ya >= g.wy_pad) continue;
-            win[((dx + a) * g.wy_pad + ya) * g.wz + z] +=
-                (wxa * wt[3 + oy]) * wzv;
+            for (int oz = 0; oz < g.w; ++oz) {
+              int za = zl + oz;
+              bool live_z = true;
+              if (g.nbz == 1) {
+                if (za >= g.m) za -= g.m;
+              } else {
+                if (za < 0 || za >= g.wz_pad) continue;
+                live_z = za < g.wz;
+              }
+              if (ya < g.wy && live_z) continue;  // summed in the window
+              const long long gi =
+                  (static_cast<long long>(plane + dx + a) * g.gy + y0 + ya) *
+                      g.gz + zoff + za;
+              gp[gi] += (wt[a] * wt[g.w + oy]) * wt[2 * g.w + oz];
+            }
           }
         }
       }
@@ -136,34 +290,41 @@ deposit_tiles(const float* __restrict__ pos, long long n_up,
   }
   __syncthreads();
   // this launch's windows are disjoint: a plain read-modify-write is safe
-  const int zoff = g.nbz == 1 ? 0 : zb * g.zbs;
-  for (int i = threadIdx.x; i < cells; i += kThreads) {
-    const int z = i % g.wz;
-    const int r = i / g.wz;
-    const int ya = r % g.wy_pad, xa = r / g.wy_pad;
-    const long long gi =
-        (static_cast<long long>(plane + xa) * g.gy + (yb * kYB + ya)) * g.gz +
-        (zoff + z);
-    gp[gi] += win[i];
+  for (int r = warp; r < rows; r += kWarps) {
+    const int xa = r / g.wy, ya = r - xa * g.wy;
+    float* row = gp + (static_cast<long long>(plane + xa) * g.gy + y0 + ya) *
+                          g.gz + zoff;
+    const float* src = win + r * g.wz;
+    for (int z = lane; z < g.wz; z += 32) row[z] += src[z];
   }
 }
 
 }  // namespace
 
+// Shared memory of a deposit block in bytes (as tiled_pm._deposit_smem
+// reckons it).
+extern "C" long long pysco_deposit_smem(int m, int w, int drift, int wy_pad,
+                                        int wz, int zbs, int nbz) {
+  return static_cast<long long>(
+      smem_bytes(make_geo(m, w, drift, wy_pad, wz, zbs, nbz)));
+}
+
 // Deposit tile-sorted column particles pos (4, n_up) into the zeroed padded
 // grid gp (m + wx - 1, m + wy_pad - 8, gz): index i holds grid index
 // i - drift along x, y (and z when z-blocked, nbz > 1; gz = m + wz - zbs),
-// the full periodic z line otherwise (gz = wz = m). Returns the CUDA error
-// of the launches (0 on success).
+// the full periodic z line otherwise (gz = wz = m). wy_pad and wz are the
+// padded window's y and z extents. Returns the CUDA error of the launches
+// (0 on success), cudaErrorInvalidValue for a window beyond a block's
+// shared memory.
 extern "C" int pysco_deposit(const float* pos, long long n_up,
                              const int* starts, float* gp, int m, int w,
                              int drift, int wy_pad, int wz, int zbs, int nbz,
                              void* stream) {
-  const DepositGeo g{m,      w,  drift, w + 2 * drift, wy_pad,
-                     wz,     zbs, nbz,  m / kYB,       m + wy_pad - kYB,
-                     nbz == 1 ? m : m + wz - zbs};
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(g.wx) * wy_pad * wz + 12 * kChunk);
+  const DepositGeo g = make_geo(m, w, drift, wy_pad, wz, zbs, nbz);
+  const size_t smem = smem_bytes(g);
+  if (smem > static_cast<size_t>(kSmemLimit)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaError_t err = cudaFuncSetAttribute(
       deposit_tiles, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -4,9 +4,7 @@
 // Replaces pysco_tpu/ops/pallas_stencil.py::scalaron_half_sweep, which
 // streams blocks of x-planes of the (n, n/2, n) half-lattices through VMEM
 // with one periodic halo plane on each side, exactly as its linear sibling
-// half_sweep. Here, as in half_sweep.cu, one thread takes one cell of the
-// output half-lattice and reads its six opposite-colour neighbours straight
-// from device memory (the packed y-neighbour rule of stencil.cuh).
+// half_sweep.
 //
 // Per cell of the to_red colour (else black), with k = Power:
 //   p   = hb - (1/6) (x-^k + x+^k + y-^k + y+^k + z-^k + z+^k)
@@ -21,26 +19,63 @@
 // operand for operand; built with --fmad=false and IEEE division, the two
 // agree bitwise.
 //
-// Each thread reads only its own dst cell and the other colour, so out may
-// be dst (an in-place update).
+// What bounds it on the card: bytes. Per cell it must read 4 B each of src,
+// dst and hb (and the coef plane) and write 4 B: at 256^3 a call moves 4 x
+// 33.5 MB (5 x with the plane), >= 0.040 ms (0.050 ms) at 3.35 TB/s. The
+// ~50 float32 operations a cell (one division per Newton step) take under
+// 10 us at 67 TFLOP/s.
 //
-// What bounds it on the card: bytes. Per cell it reads 4 B each of dst and
-// hb (and the coef plane) and writes 4 B; the six neighbour reads of src
-// mostly hit L1/L2. At 256^3 a call moves 4 x 33.5 MB (5 x with the
-// plane): >= 0.040 ms (0.050 ms) at 3.35 TB/s. The ~50 float32 operations
-// a cell (one division per Newton step) take under 10 us at 67 TFLOP/s.
+// The design (2.5-D blocking): a block owns a tile of up to 8 packed rows
+// (jp) x 128 z cells and marches along x over a run of planes. Each thread
+// owns 4 consecutive z cells of one row and moves them as one float4 (dst,
+// hb, the coef plane, out). src^k of the plane being updated sits in shared
+// memory with a one-row y halo and a one-cell z halo; src^k of the planes
+// before and after it stays in the thread's registers and moves down the
+// queue as the block marches. So each src value is read from device memory
+// once per run (plus the halo and the two planes that bound the run) and
+// raised to the power once; the loads of the next plane are issued before
+// the current plane is computed. A 3-D grid of blocks (z tiles, y tiles,
+// runs) needs no runtime division. The run length is chosen so that about
+// 1024 blocks fill the card (4 blocks of 256 threads an SM, the registers
+// bounded to let them in).
+//
+// Each thread reads only its own dst cells and the other colour, so out may
+// be dst (an in-place update). n must be a multiple of 4 (one float4), and
+// every array 16-byte aligned; the wrapper checks both.
 
 #include "stencil.cuh"
 
 namespace {
 
 using pysco::kInvSix;
-using pysco::kStencilThreads;
 using pysco::periodic;
 using pysco::power_of;
 
 // float32(1e-12) rounded from the double, as numpy's float32(1e-12)
 constexpr float kNewtonEps = static_cast<float>(1e-12);
+
+constexpr int kVec = 4;                    // z cells of a thread: one float4
+constexpr int kTileZ = 128;                // z cells of a tile
+constexpr int kTileY = 8;                  // packed rows of a tile
+constexpr int kThreads = kTileZ / kVec * kTileY;
+constexpr int kRow = kTileZ + 2 * kVec;    // a float4 of halo room each side
+constexpr int kTargetBlocks = 1024;
+// at most 64 registers a thread, so that 4 blocks share an SM (the 72-80
+// registers ptxas takes unbounded let only 3 in)
+constexpr int kBlocksPerSM = 4;
+
+// f / fp, rounded as IEEE division rounds it. A zero f -- every Newton step
+// of a converged cell -- sends the division down its slow path (chip_smoke
+// phase 3 times a sweep of converged cells), so its quotient is written
+// out: a zero whose sign is the xor of the operands' (fp is never zero
+// here; a NaN fp still divides).
+__device__ __forceinline__ float quotient(float f, float fp) {
+  if (f == 0.0f && fp == fp) {
+    return __int_as_float((__float_as_int(f) ^ __float_as_int(fp)) &
+                          static_cast<int>(0x80000000u));
+  }
+  return f / fp;
+}
 
 template <int Power>
 __device__ __forceinline__ float newton_root(float x, float p, float c0,
@@ -56,64 +91,164 @@ __device__ __forceinline__ float newton_root(float x, float p, float c0,
       fp = (4.0f * x2) * x + p;
     }
     fp = fabsf(fp) < kNewtonEps ? kNewtonEps : fp;
-    x = x - f / fp;
+    x = x - quotient(f, fp);
   }
   return x;
 }
 
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <int Power>
+__device__ __forceinline__ float4 power4(float4 v) {
+  return make_float4(power_of<Power>(v.x), power_of<Power>(v.y),
+                     power_of<Power>(v.z), power_of<Power>(v.w));
+}
+
+__device__ __forceinline__ float lane(const float4& v, int c) {
+  return c == 0 ? v.x : (c == 1 ? v.y : (c == 2 ? v.z : v.w));
+}
+
+// src values of one plane that a thread loads: its own 4 cells, 4 cells of
+// a halo row (threads of rows 0 and 1), and the z halo cells at the ends of
+// those rows (the tile's first and last threads)
+struct PlaneLoad {
+  float4 own, hrow;
+  float own_lo, own_hi, h_lo, h_hi;
+};
+
 template <int Power, bool CoefPlane>
-__global__ void __launch_bounds__(kStencilThreads)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 scalaron_sweep_kernel(const float* __restrict__ src, const float* dst,
                       const float* __restrict__ hb,
                       const float* __restrict__ coef_plane, float coef,
-                      float* out, int n, int to_red, float f_relax,
+                      float* out, int n, int run, int to_red, float f_relax,
                       int newton_iters) {
+  __shared__ __align__(16) float plane[kTileY + 2][kRow];
   const int hp = n / 2;
-  const int cells = n * hp * n;
-  const int idx = blockIdx.x * kStencilThreads + threadIdx.x;
-  if (idx >= cells) return;
-  const int k = idx % n;
-  const int jp = (idx / n) % hp;
-  const int i = idx / (n * hp);
-  const bool s1 = ((i + k) & 1) == 1;
-  auto at = [&](int a, int b, int c) {
-    return power_of<Power>(src[(a * hp + b) * n + c]);
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int z0 = blockIdx.x * blockDim.x * kVec;
+  const int tw = min(n - z0, static_cast<int>(blockDim.x) * kVec);
+  const int jp0 = blockIdx.y * blockDim.y;
+  const int jr = min(hp - jp0, static_cast<int>(blockDim.y));
+  const int i0 = blockIdx.z * run;
+  const int i1 = min(i0 + run, n);
+  const int k = z0 + kVec * tx;
+  const int jp = jp0 + ty;
+  const bool col = kVec * tx < tw;
+  const bool own = col && ty < jr;
+  const bool lo = tx == 0, hi = kVec * (tx + 1) == tw;
+  // threads of row 0 load the row before the tile, of row 1 the row after
+  const bool hrow = col && ty < 2;
+  const int hjp = ty == 0 ? periodic(jp0 - 1, hp) : periodic(jp0 + jr, hp);
+  const int hr = ty == 0 ? 0 : jr + 1;  // its row in shared memory
+  const int zlo = periodic(z0 - 1, n), zhi = periodic(z0 + tw, n);
+  const long long plane_cells = static_cast<long long>(hp) * n;
+
+  auto load_plane = [&](int ii, PlaneLoad& L) {
+    const float* s = src + ii * plane_cells;
+    if (own) {
+      L.own = load4(s + jp * n + k);
+      if (lo) L.own_lo = s[jp * n + zlo];
+      if (hi) L.own_hi = s[jp * n + zhi];
+    }
+    if (hrow) {
+      L.hrow = load4(s + hjp * n + k);
+      if (lo) L.h_lo = s[hjp * n + zlo];
+      if (hi) L.h_hi = s[hjp * n + zhi];
+    }
   };
-  const float xm = at(periodic(i - 1, n), jp, k);
-  const float xp = at(periodic(i + 1, n), jp, k);
-  const float cen = power_of<Power>(src[idx]);
-  // red with s = 1 and black with s = 0 have their y- neighbour one row
-  // down; the others have their y+ neighbour one row up
-  const bool down = to_red ? s1 : !s1;
-  const float ym = down ? at(i, periodic(jp - 1, hp), k) : cen;
-  const float yp = down ? cen : at(i, periodic(jp + 1, hp), k);
-  const float zm = at(i, jp, periodic(k - 1, n));
-  const float zp = at(i, jp, periodic(k + 1, n));
-  float nb = xm + xp;
-  nb = nb + ym;
-  nb = nb + yp;
-  nb = nb + zm;
-  nb = nb + zp;
-  const float p = hb[idx] - kInvSix * nb;
-  const float c0 = CoefPlane ? coef_plane[idx] : coef;
-  const float old = dst[idx];
-  const float x = newton_root<Power>(old, p, c0, newton_iters);
-  out[idx] = old + f_relax * (x - old);
+  // src^k of a loaded plane into shared memory (own cells as given)
+  auto store_plane = [&](const PlaneLoad& L, const float4& own_pow) {
+    if (own) {
+      float* row = plane[ty + 1];
+      *reinterpret_cast<float4*>(row + kVec + kVec * tx) = own_pow;
+      if (lo) row[kVec - 1] = power_of<Power>(L.own_lo);
+      if (hi) row[kVec + tw] = power_of<Power>(L.own_hi);
+    }
+    if (hrow) {
+      float* row = plane[hr];
+      *reinterpret_cast<float4*>(row + kVec + kVec * tx) =
+          power4<Power>(L.hrow);
+      if (lo) row[kVec - 1] = power_of<Power>(L.h_lo);
+      if (hi) row[kVec + tw] = power_of<Power>(L.h_hi);
+    }
+  };
+
+  PlaneLoad L;
+  load_plane(periodic(i0 - 1, n), L);
+  float4 pm = power4<Power>(L.own);  // src^k of plane i - 1
+  load_plane(i0, L);
+  float4 pc = power4<Power>(L.own);  // src^k of plane i
+  store_plane(L, pc);
+  for (int i = i0; i < i1; ++i) {
+    PlaneLoad N;
+    load_plane(periodic(i + 1, n), N);
+    const long long at = (i * plane_cells + jp * n) + k;
+    float4 d4, h4, c4;
+    if (own) {
+      d4 = load4(dst + at);
+      h4 = load4(hb + at);
+      if (CoefPlane) c4 = load4(coef_plane + at);
+    }
+    const float4 pn = power4<Power>(N.own);  // src^k of plane i + 1
+    __syncthreads();  // plane i complete in shared memory
+    if (own) {
+      const float* row = plane[ty + 1] + kVec + kVec * tx;
+      const float* below = plane[ty] + kVec + kVec * tx;
+      const float* above = plane[ty + 2] + kVec + kVec * tx;
+      float r[kVec];
+#pragma unroll
+      for (int c = 0; c < kVec; ++c) {
+        const bool s1 = ((i + k + c) & 1) == 1;
+        const float cen = row[c];
+        // red with s = 1 and black with s = 0 have their y- neighbour one
+        // row down; the others have their y+ neighbour one row up
+        const bool down = to_red ? s1 : !s1;
+        const float ym = down ? below[c] : cen;
+        const float yp = down ? cen : above[c];
+        float nb = lane(pm, c) + lane(pn, c);
+        nb = nb + ym;
+        nb = nb + yp;
+        nb = nb + row[c - 1];
+        nb = nb + row[c + 1];
+        const float p = lane(h4, c) - kInvSix * nb;
+        const float c0 = CoefPlane ? lane(c4, c) : coef;
+        const float old = lane(d4, c);
+        const float x = newton_root<Power>(old, p, c0, newton_iters);
+        r[c] = old + f_relax * (x - old);
+      }
+      *reinterpret_cast<float4*>(out + at) = make_float4(r[0], r[1], r[2],
+                                                         r[3]);
+    }
+    __syncthreads();  // every read of plane i done
+    if (i + 1 < i1) store_plane(N, pn);
+    pm = pc;
+    pc = pn;
+  }
 }
 
 template <int Power>
 void launch(const float* src, const float* dst, const float* hb,
             const float* coef_plane, float coef, float* out, int n,
             int to_red, float f_relax, int newton_iters, cudaStream_t st) {
-  const int cells = n * (n / 2) * n;
-  const unsigned blocks = (cells + kStencilThreads - 1) / kStencilThreads;
+  const int hp = n / 2;
+  const dim3 block(min(n, kTileZ) / kVec, min(hp, kTileY));
+  const int gx = (n + block.x * kVec - 1) / (block.x * kVec);
+  const int gy = (hp + block.y - 1) / block.y;
+  int run = n;
+  while (run > 2 && gx * gy * ((n + run - 1) / run) < kTargetBlocks) {
+    run /= 2;
+  }
+  const dim3 grid(gx, gy, (n + run - 1) / run);
   if (coef_plane != nullptr) {
-    scalaron_sweep_kernel<Power, true><<<blocks, kStencilThreads, 0, st>>>(
-        src, dst, hb, coef_plane, coef, out, n, to_red, f_relax,
+    scalaron_sweep_kernel<Power, true><<<grid, block, 0, st>>>(
+        src, dst, hb, coef_plane, coef, out, n, run, to_red, f_relax,
         newton_iters);
   } else {
-    scalaron_sweep_kernel<Power, false><<<blocks, kStencilThreads, 0, st>>>(
-        src, dst, hb, coef_plane, coef, out, n, to_red, f_relax,
+    scalaron_sweep_kernel<Power, false><<<grid, block, 0, st>>>(
+        src, dst, hb, coef_plane, coef, out, n, run, to_red, f_relax,
         newton_iters);
   }
 }
@@ -123,8 +258,9 @@ void launch(const float* src, const float* dst, const float* hb,
 // Update the to_red colour (else black) of the (n, n/2, n) half-lattice
 // dst from the other colour src, for the neighbour power 2 (f(R) n = 1) or
 // 3 (n = 2). coef_plane may be null, and then the scalar coef is c0. out
-// may be dst. Returns the CUDA error of the launch (0 on success), or
-// cudaErrorInvalidValue for another power.
+// may be dst. n must be a multiple of 4 and every array 16-byte aligned.
+// Returns the CUDA error of the launch (0 on success), or
+// cudaErrorInvalidValue for another power or n.
 extern "C" int pysco_scalaron_half_sweep(const float* src, const float* dst,
                                          const float* hb,
                                          const float* coef_plane, float coef,
@@ -132,6 +268,7 @@ extern "C" int pysco_scalaron_half_sweep(const float* src, const float* dst,
                                          float f_relax, int power,
                                          int newton_iters, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < kVec || n % kVec) return static_cast<int>(cudaErrorInvalidValue);
   if (power == 2) {
     launch<2>(src, dst, hb, coef_plane, coef, out, n, to_red, f_relax,
               newton_iters, st);

@@ -63,7 +63,9 @@ def initialise_potential(b: torch.Tensor, q) -> torch.Tensor:
     p = h2 * b.to(F64)
     d1 = 27.0 * p * p
     Q = _cbrt(0.5 * (d1 + torch.sqrt(d1 * d1 - 4.0 * (d0 * d0 * d0))))
-    S = 0.5 * torch.sqrt(torch.abs(Q + d0 / Q) / 3.0)
+    # a tensor numerator: torch takes float / tensor as reciprocal times
+    # float, two roundings where the JAX module has one division
+    S = 0.5 * torch.sqrt(torch.abs(Q + _f64(d0, Q) / Q) / 3.0)
     S = torch.where(S > 0.0, S, 1.0)
     u = -S + 0.5 * torch.sqrt(torch.clamp(-4.0 * S * S + p / S, min=0.0))
     fallback = abs(h2 * float(q)) ** 0.25

@@ -304,10 +304,16 @@ def scalaron_half_sweep(src, dst, hb, coef, to_red: bool, f_relax: float,
                          "be 2 (f(R) n = 1) or 3 (n = 2)")
     n = src.shape[0]
     _check_n("scalaron_half_sweep", n)
+    if n % 4:
+        raise ValueError(f"scalaron_half_sweep: grid size {n} must be a "
+                         "multiple of 4 (the kernel moves float4s)")
     shape = (n, n // 2, n)
     for name, t in (("src", src), ("dst", dst), ("hb", hb),
                     ("coef", coef if plane else None)):
         _check(f"scalaron_half_sweep {name}", t, shape)
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"scalaron_half_sweep {name}: the kernel "
+                             "needs a 16-byte aligned tensor")
     out = torch.empty_like(dst)
     err = _kernels().pysco_scalaron_half_sweep(
         src.data_ptr(), dst.data_ptr(), hb.data_ptr(),

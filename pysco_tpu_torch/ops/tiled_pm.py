@@ -50,7 +50,10 @@ LAUNCHES = {"deposit": 0, "gather": 0}
 
 # dynamic shared memory a block may opt into on Hopper (H100/H200)
 _SMEM_LIMIT = 232448
-_DEPOSIT_CHUNK = 256  # particles staged per pass (csrc/deposit.cu)
+# csrc/deposit.cu: particles staged per pass (256 threads x 2) and the
+# bytes kept for its block sort
+_DEPOSIT_CHUNK = 512
+_DEPOSIT_SORT_SCRATCH = 12288
 
 
 def reset_launches() -> None:
@@ -128,6 +131,16 @@ class Geometry(NamedTuple):
         z-blocked)."""
         gz = m if self.nbz == 1 else m + self.wz_pad - self.zbs
         return (m + self.wx - 1, m + self.wy_pad - YB, gz)
+
+    @property
+    def live_window(self):
+        """(x, y, z) extent of the cells a tile's particles reach while
+        each keeps its drift bound: w + 2 drift planes, YB + w - 1 + 2 drift
+        rows, and the z line or zbs + w - 1 + 2 drift cells. The deposit
+        kernel keeps these in shared memory; the rest of the padded window
+        (the 8- and 128-rounding) only a particle past its bound reaches."""
+        z = self.zbs if self.nbz == 1 else self.zbs + self.wx - 1
+        return (self.wx, YB + self.wx - 1, z)
 
 
 def _geometry(ncells_1d: int, scheme: str, drift: int = 0,
@@ -363,6 +376,8 @@ def _kernels():
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.pysco_deposit.argtypes = [P, L, P, P, I, I, I, I, I, I, I, P]
     lib.pysco_deposit.restype = I
+    lib.pysco_deposit_smem.argtypes = [I, I, I, I, I, I, I]
+    lib.pysco_deposit_smem.restype = L
     lib.pysco_gather.argtypes = [P, I, P, L, P, I, P, I, I, P]
     lib.pysco_gather.restype = I
     return lib
@@ -382,6 +397,28 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel failed: CUDA error {err}")
 
 
+def _deposit_smem(g: Geometry) -> int:
+    """Dynamic shared memory of a deposit block in bytes, as
+    ``csrc/deposit.cu`` lays it out: the sort scratch (or, after the sort,
+    the sorted keys and the bin starts), the live window, and per staged
+    particle its x, y, z offsets, sorted slot and 3 w weights."""
+    wx, wy, wz = g.live_window
+    nbins = wz + g.w - 1
+    scratch = _round_up(max(_DEPOSIT_SORT_SCRATCH,
+                            4 * (_DEPOSIT_CHUNK + nbins + 1)), 16)
+    return scratch + 4 * wx * wy * wz + 4 * _DEPOSIT_CHUNK * (4 + 3 * g.w)
+
+
+def _check_deposit_smem(g: Geometry, m: int, scheme: str, drift: int) -> None:
+    """Raise before a launch the card would refuse."""
+    smem = _deposit_smem(g)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"deposit window of {smem} B exceeds the {_SMEM_LIMIT} B of "
+            f"shared memory a block can use (m={m}, {scheme}, drift={drift})"
+        )
+
+
 def _padded_sums_cuda(position_sorted, tile_starts, m: int, scheme: str,
                       drift: int, g: Geometry) -> torch.Tensor:
     """Launch the deposit kernel (csrc/deposit.cu) into a zeroed padded
@@ -389,12 +426,7 @@ def _padded_sums_cuda(position_sorted, tile_starts, m: int, scheme: str,
     n_up = position_sorted.shape[1]
     _check_cuda("position_sorted", position_sorted, F32, (4, n_up))
     _check_cuda("tile_starts", tile_starts, I32, (g.ntiles + 1,))
-    smem = 4 * (g.wx * g.wy_pad * g.wz + 12 * _DEPOSIT_CHUNK)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(
-            f"deposit window of {smem} B exceeds the {_SMEM_LIMIT} B of "
-            f"shared memory a block can use (m={m}, {scheme}, drift={drift})"
-        )
+    _check_deposit_smem(g, m, scheme, drift)
     gp = torch.zeros(g.padded_shape(m), dtype=F32,
                      device=position_sorted.device)
     with torch.cuda.device(gp.device):

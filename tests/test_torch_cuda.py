@@ -37,15 +37,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _state(m, n, scheme, drift, seed, device):
+def _state(m, n, scheme, drift, seed, device, zbs=None, xspan=1.0,
+           clustered=True):
     rng = np.random.default_rng(seed)
     pos = rng.random((n, 3), dtype=np.float32)
-    pos[: n // 2] = 0.2 + 0.25 * pos[: n // 2]
+    if clustered:
+        pos[: n // 2] = 0.2 + 0.25 * pos[: n // 2]
+    pos[:, 0] *= np.float32(xspan)
     vel = rng.standard_normal((n, 3)).astype(np.float32)
     pc, vc = tiled_pm.to_columns_host(pos, vel, n)
     ps, _, ts = tiled_pm.sort_particles(torch.as_tensor(pc, device=device),
                                         torch.as_tensor(vc, device=device),
-                                        m, scheme)
+                                        m, scheme, zbs)
     if drift:
         delta = torch.as_tensor(((drift - 0.05) / m * rng.uniform(
             -1, 1, (3, ps.shape[1]))).astype(np.float32), device=device)
@@ -55,12 +58,63 @@ def _state(m, n, scheme, drift, seed, device):
     return ps, ts
 
 
+def _edge_state(ps, ts, m, scheme, drift, zbs, seed):
+    """Every real column moved so that its base cell sits on an edge of its
+    stale tile's window: x at -drift, 0 or +drift planes, y at -drift, the
+    live window's last row (7 + drift) or the envelope's (wy_pad - w -
+    drift), z likewise when z-blocked. Cells past the live window go
+    through the kernel's spill path."""
+    g = tiled_pm._geometry(m, scheme, drift, zbs)
+    rng = np.random.default_rng(seed)
+    n_up = ps.shape[1]
+    tile = tiled_pm._tile_of_columns(ts, n_up).cpu().numpy().astype(np.int64)
+    real = (ps[0].cpu().numpy() < tiled_pm.SENTINEL_MIN) & (tile < g.ntiles)
+    plane, yb = tile // (g.nby * g.nbz), (tile // g.nbz) % g.nby
+    sx = rng.choice([-drift, 0, drift], n_up)
+    sy = rng.choice([-drift, 7 + drift, g.wy_pad - g.w - drift], n_up)
+    if g.nbz > 1:
+        sz = rng.choice([-drift, g.zbs - 1 + drift, g.wz_pad - g.w - drift],
+                        n_up)
+        bz = (tile % g.nbz) * g.zbs + sz
+    else:
+        bz = rng.integers(0, m, n_up)
+    off = 1.5 if scheme == "tsc" else 0.75  # the base cell is the target
+    out = ps.cpu().numpy().copy()
+    for axis, base in ((0, plane + sx), (1, yb * 8 + sy), (2, bz)):
+        xs = (((base + off) % m) / m).astype(np.float32)
+        out[axis] = np.where(real, xs, out[axis])
+    return torch.as_tensor(out, device=ps.device)
+
+
+def _case(case, m, scheme, drift, cuda, zbs=None):
+    """(position_sorted, tile_starts) of a deposit test case: "clustered"
+    (half the particles in a quarter of the box, drifted within the bound),
+    "dense" (150 000 on 32^3, drifted: tiles of several 512-particle
+    chunks, yet few enough a cell that the twin's float32 sums stay within
+    1e-6 of the largest) or "edge" (_edge_state). All have a sentinel
+    tail; all but "dense" leave the last quarter of the x-planes empty."""
+    n = 150_000 if case == "dense" else 3000
+    xspan = 1.0 if case == "dense" else 0.75
+    if case == "edge":
+        ps, ts = _state(m, n, scheme, 0, 1, cuda, zbs, xspan)
+        ps = _edge_state(ps, ts, m, scheme, drift, zbs, 2)
+    else:
+        ps, ts = _state(m, n, scheme, drift, 1, cuda, zbs, xspan,
+                        clustered=case == "clustered")
+    assert int(tiled_pm.drift_violations(ps, ts, m, scheme, drift, zbs)) == 0
+    assert ps.shape[1] > n  # sentinel tail columns
+    return m, ps, ts
+
+
+@pytest.mark.parametrize("case", ["clustered", "dense", "edge"])
 @pytest.mark.parametrize("scheme", ["ngp", "cic", "tsc"])
-@pytest.mark.parametrize("drift", [0, 2])
-def test_kernels_match_twins(cuda, scheme, drift):
-    m, n = 32, 3000
-    ps, ts = _state(m, n, scheme, drift, 1, cuda)
-    assert int(tiled_pm.drift_violations(ps, ts, m, scheme, drift)) == 0
+@pytest.mark.parametrize("drift", [0, 1, 2, 3])
+def test_kernels_match_twins(cuda, scheme, drift, case):
+    m, ps, ts = _case(case, 32, scheme, drift, cuda)
+    if case == "dense":
+        assert int((ts[1:] - ts[:-1]).max()) > 2 * 512  # several chunks
+    else:
+        assert bool((ts[1:] == ts[:-1]).any())  # empty tiles
     before = dict(tiled_pm.LAUNCHES)
     grid = tiled_pm.deposit(ps, ts, m, scheme, drift)
     twin = tiled_pm.deposit_plain(ps, ts, m, scheme, drift)
@@ -79,19 +133,30 @@ def test_kernels_match_twins(cuda, scheme, drift):
         rtol=1e-6, atol=1e-7)
 
 
-def test_zblocked_kernel_matches_twin(cuda):
-    m, n, zbs = 32, 4000, 8
-    for scheme, drift in (("cic", 0), ("tsc", 2)):
-        rng = np.random.default_rng(2)
-        pos = rng.random((n, 3), dtype=np.float32)
-        pc, vc = tiled_pm.to_columns_host(pos, pos, n)
-        ps, _, ts = tiled_pm.sort_particles(
-            torch.as_tensor(pc, device=cuda), torch.as_tensor(vc, device=cuda),
-            m, scheme, zbs)
-        grid = tiled_pm.deposit(ps, ts, m, scheme, drift, zbs)
-        twin = tiled_pm.deposit_plain(ps, ts, m, scheme, drift, zbs)
-        torch.testing.assert_close(grid, twin, rtol=0,
-                                   atol=1e-6 * float(twin.max()))
+@pytest.mark.parametrize("m,zbs,scheme,drift,case", [
+    (32, 8, "cic", 0, "clustered"), (32, 8, "tsc", 2, "clustered"),
+    (32, 8, "ngp", 1, "edge"), (32, 8, "cic", 3, "edge"),
+    (32, 8, "tsc", 0, "edge"), (512, None, "cic", 1, "clustered"),
+    (512, None, "tsc", 3, "edge")])
+def test_zblocked_kernel_matches_twin(cuda, m, zbs, scheme, drift, case):
+    _, ps, ts = _case(case, m, scheme, drift, cuda, zbs)
+    assert tiled_pm._geometry(m, scheme, drift, zbs).nbz > 1
+    grid = tiled_pm.deposit(ps, ts, m, scheme, drift, zbs)
+    twin = tiled_pm.deposit_plain(ps, ts, m, scheme, drift, zbs)
+    assert torch.equal(grid, tiled_pm.deposit(ps, ts, m, scheme, drift, zbs))
+    torch.testing.assert_close(grid, twin, rtol=0,
+                               atol=1e-6 * float(twin.max()))
+
+
+def test_deposit_smem_matches_kernel(cuda):
+    """The wrapper's shared-memory reckoning is the kernel's own."""
+    lib = tiled_pm._kernels()
+    for m, scheme, drift, zbs in ((32, "cic", 0, None), (32, "tsc", 3, 8),
+                                  (256, "tsc", 3, None), (512, "cic", 1, None),
+                                  (504, "tsc", 3, None)):
+        g = tiled_pm._geometry(m, scheme, drift, zbs)
+        assert lib.pysco_deposit_smem(m, g.w, drift, g.wy_pad, g.wz, g.zbs,
+                                      g.nbz) == tiled_pm._deposit_smem(g)
 
 
 def test_wrappers_check_inputs(cuda):
@@ -300,6 +365,39 @@ def test_scalaron_half_sweep_matches_twin(cuda, n):
         stencil.scalaron_half_sweep(black, red, hb[0], c0, True, 1.25, 4)
     with pytest.raises(ValueError, match="expected shape"):
         stencil.scalaron_half_sweep(black, red, hb[0], u0, True, 1.25, 2)
+
+
+@pytest.mark.parametrize("power", [2, 3])
+def test_scalaron_half_sweep_zero_steps_match_twin(cuda, power):
+    """Cells whose Newton residual f is exactly zero (a converged state,
+    and zero cells with c0 = -0 and +0) take the kernel's written-out zero
+    quotient: still bitwise the twin, signed zeros included."""
+    n = 16
+    u0 = np.float32(1.0216)
+    hbv = np.float32(3e-6)
+    nb = np.float32(0)
+    for _ in range(6):
+        nb = np.float32(nb + u0 ** power)
+    p = np.float32(hbv - np.float32(np.float32(1 / 6) * nb))
+    if power == 2:
+        f0 = np.float32(u0 * np.float32(np.float32(u0 * u0) + p))
+    else:
+        u2 = np.float32(u0 * u0)
+        f0 = np.float32(np.float32(u2 * u2) + np.float32(p * u0))
+    shape = (n, n // 2, n)
+    src = torch.full(shape, float(u0), device=cuda)
+    hb = torch.full(shape, float(hbv), device=cuda)
+    zeros = torch.zeros(shape, device=cuda)
+    for dst, coef in ((src, float(-f0)), (zeros, -0.0), (zeros, 0.0),
+                      (-zeros, -0.0)):
+        got = stencil.scalaron_half_sweep(src, dst, hb, coef, True, 1.25,
+                                          power)
+        want = stencil.scalaron_half_sweep_plain(src, dst, hb, coef, True,
+                                                 1.25, power)
+        assert torch.equal(got, want)
+        assert torch.equal(torch.signbit(got), torch.signbit(want))
+    assert torch.equal(stencil.scalaron_half_sweep(src, src, hb, float(-f0),
+                                                   True, 1.25, power), src)
 
 
 def test_fr_run_reproducible(cuda, tmp_path):

@@ -4,6 +4,8 @@ against the JAX package's on the same numpy inputs. On the CPU the port
 runs the plain twin of the scalaron sweep kernel; the JAX package its XLA
 path."""
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -91,12 +93,13 @@ def test_operators_and_errors_match_jax(name):
 def test_initialise_potential_matches_jax(name, q):
     """The float64 zero-neighbour roots, on a regular density and on
     near-empty cells (tests/test_scalaron.py:85). torch has no cbrt: the
-    port takes sign(v) |v|^(1/3), as XLA's CPU cbrt does in 98% of cases
-    (the rest differ by a float64 ulp). After the float32 cast the guesses
-    agree to one float32 ulp, except where the quartic's Q + d0/Q cancels
-    (near-empty cells: the float64 ulp is amplified, which is why the JAX
-    module guards that branch); there the two stay within 5%, and every
-    guess is finite, positive and solves its cell equation as
+    port takes sign(v) |v|^(1/3) by torch's pow, which differs from XLA's
+    CPU cbrt (the C library's pow) by a float64 ulp in a few percent of
+    values (test_cube_root_difference_is_the_library_pow). After the
+    float32 cast the guesses agree to one float32 ulp, except where the quartic's Q +
+    d0/Q cancels (near-empty cells: the float64 ulp is amplified, which is
+    why the JAX module guards that branch); there the two stay within 5%,
+    and every guess is finite, positive and solves its cell equation as
     tests/test_scalaron.py requires."""
     mod, jmod = MODELS[name]
     n = 16
@@ -116,6 +119,68 @@ def test_initialise_potential_matches_jax(name, q):
             assert np.median(np.abs(resid) / abs(h2 * q)) < 1e-6
         else:
             assert rel.max() <= 2.4e-7, rel.max()
+
+
+def _cube_root_sample():
+    """Seeded float64 values in [0, 1) and spread over 1e-30 .. 1e30."""
+    rng = np.random.default_rng(2024)
+    return np.concatenate([rng.random(50_000),
+                           10.0 ** rng.uniform(-30, 30, 50_000)])
+
+
+def test_cube_root_difference_is_the_library_pow():
+    """Pins the cause of the quartic guess's difference on near-empty
+    cells: XLA's CPU cbrt equals the C library's pow(|v|, 1/3) bitwise,
+    and torch's float64 pow does not."""
+    v = _cube_root_sample()
+    libm = np.array([math.pow(x, 1.0 / 3.0) for x in v.tolist()])
+    xla = np.array(jnp.cbrt(jnp.asarray(v, jnp.float64)))
+    assert xla.dtype == np.float64
+    np.testing.assert_array_equal(xla, libm)
+    port = torch.pow(torch.as_tensor(v), 1.0 / 3.0).numpy()
+    differ = np.mean(port != libm)
+    # torch's pow is another implementation: a float64 ulp apart in a few
+    # percent of the values, never more
+    assert 0.001 < differ < 0.1, differ
+    np.testing.assert_allclose(port, libm, rtol=3e-16, atol=0)
+
+
+def test_float_over_tensor_rounds_twice():
+    """The other cause the quartic guess had: torch takes ``float /
+    tensor`` as the reciprocal times the float (two roundings), where
+    numpy and XLA divide once; a tensor numerator divides once."""
+    v = torch.as_tensor(_cube_root_sample()[:50_000] + 0.5)
+    d0 = -1.2345678901234567e-3
+    once = d0 / v.numpy()
+    assert (torch.full_like(v, d0) / v).numpy().tolist() == once.tolist()
+    assert ((d0 / v).numpy() != once).any()
+
+
+def _libm_cbrt(v: torch.Tensor) -> torch.Tensor:
+    """Real cube root by the C library's pow, value by value on the host."""
+    out = [math.copysign(math.pow(abs(x), 1.0 / 3.0), x)
+           for x in v.reshape(-1).tolist()]
+    return torch.tensor(out, dtype=v.dtype).reshape(v.shape)
+
+
+@pytest.mark.parametrize("q", [Q, -3.14e-5])
+def test_quartic_guess_matches_jax_with_the_library_cube_root(monkeypatch,
+                                                              q):
+    """With the cube root taken by the C library's pow, the port's quartic
+    first guess meets pysco_tpu's to one float32 ulp in every cell of the
+    near-empty case of test_initialise_potential_matches_jax: with the
+    port's division by a tensor (test_float_over_tensor_rounds_twice), the
+    cube root is the only source of the difference there."""
+    monkeypatch.setattr(quartic, "_cbrt", _libm_cbrt)
+    n = 16
+    tiny = np.geomspace(1e-12, 1e-2, n ** 3).astype(np.float32).reshape(
+        n, n, n)
+    got = quartic.initialise_potential(_t(tiny), q).numpy()
+    want = np.array(jquartic.initialise_potential(_j(tiny), q))
+    assert (got > 0).all() and (want > 0).all()
+    ulps = np.abs(got.view(np.int32).astype(np.int64)
+                  - want.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 1, ulps.max()
 
 
 @pytest.mark.parametrize("name", ["cubic", "quartic"])

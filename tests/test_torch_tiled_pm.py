@@ -264,3 +264,69 @@ def test_cuda_wrappers_refuse_cpu_fallback():
     before = dict(tiled_pm.LAUNCHES)
     tiled_pm.deposit(ps, ts, 16, "cic")
     assert tiled_pm.LAUNCHES == before  # the twin counts no launch
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("drift", [0, 1, 3])
+@pytest.mark.parametrize("m,zbs", [(16, None), (32, 8)])
+def test_live_window_holds_every_bounded_cell(m, zbs, scheme, drift):
+    """The deposit kernel keeps only each tile's live window: it lies inside
+    the padded window (Geometry.padded_shape), and every cell a
+    drift-bounded state adds to lies in some tile's live window, so the
+    padded grid outside the live windows stays zero."""
+    g = tiled_pm._geometry(m, scheme, drift, zbs)
+    wx, wy, wz = g.live_window
+    assert wx == g.wx and wy <= g.wy_pad and wz <= g.wz
+    assert wy == 8 + g.w - 1 + 2 * drift
+    assert wz == (m if g.nbz == 1 else g.zbs + g.w - 1 + 2 * drift)
+    gx, gy, gz = g.padded_shape(m)
+    live = torch.zeros((gx, gy, gz), dtype=torch.bool)
+    for t in range(g.ntiles):
+        plane, yb, zb = t // (g.nby * g.nbz), (t // g.nbz) % g.nby, t % g.nbz
+        zoff = 0 if g.nbz == 1 else zb * g.zbs
+        assert plane + wx <= gx and yb * 8 + wy <= gy and zoff + wz <= gz
+        live[plane:plane + wx, yb * 8:yb * 8 + wy, zoff:zoff + wz] = True
+    pos, vel = _rows(2000, 41, clustered=True)
+    pc, vc = tiled_pm.to_columns_host(pos, vel, 2000)
+    ps, _, ts = tiled_pm.sort_particles(_t(pc), _t(vc), m, scheme, zbs)
+    if drift:
+        ps = _t(_drifted(ps.numpy(), m, drift - 0.05, 42))
+    assert int(tiled_pm.drift_violations(ps, ts, m, scheme, drift, zbs)) == 0
+    gp = tiled_pm._padded_sums_plain(ps, ts, m, scheme, drift, g)
+    assert int(torch.count_nonzero(gp[~live])) == 0
+    assert float(gp[live].sum()) == pytest.approx(2000, rel=1e-5)
+
+
+def test_deposit_smem_reckoning():
+    """The wrapper's reckoning of the kernel's shared memory
+    (csrc/deposit.cu's layout), and its refusal of a window the card
+    cannot hold."""
+    chunk, scratch = tiled_pm._DEPOSIT_CHUNK, tiled_pm._DEPOSIT_SORT_SCRATCH
+    # 256^3 CIC at drift 0: the z line of 2 x 9 rows, 6 weights a particle
+    g = tiled_pm._geometry(256, "cic", 0)
+    assert g.live_window == (2, 9, 256)
+    assert tiled_pm._deposit_smem(g) == (scratch + 4 * 2 * 9 * 256
+                                         + 4 * chunk * (4 + 6))
+    # 512^3 CIC at drift 1, z-blocked: 4 x 11 x 131 cells
+    g = tiled_pm._geometry(512, "cic", 1)
+    assert g.live_window == (4, 11, 131)
+    assert tiled_pm._deposit_smem(g) == (scratch + 4 * 4 * 11 * 131
+                                         + 4 * chunk * (4 + 6))
+    # a long z line: the bin starts outgrow the sort scratch
+    g = tiled_pm._geometry(4000, "ngp", 0)
+    arrays = 4 * (chunk + 4000 + 1)
+    assert arrays > scratch
+    assert tiled_pm._deposit_smem(g) == (-(-arrays // 16) * 16
+                                         + 4 * 1 * 8 * 4000
+                                         + 4 * chunk * (4 + 3))
+    # the widest window the tests and smoke run use fits; a wider one
+    # raises before any launch
+    for m, scheme, drift in ((256, "tsc", 3), (512, "tsc", 3),
+                             (1024, "cic", 1)):
+        g = tiled_pm._geometry(m, scheme, drift)
+        assert tiled_pm._deposit_smem(g) <= tiled_pm._SMEM_LIMIT
+        tiled_pm._check_deposit_smem(g, m, scheme, drift)
+    g = tiled_pm._geometry(504, "tsc", 3)  # nbz = 1: a 504-cell z line
+    assert tiled_pm._deposit_smem(g) > tiled_pm._SMEM_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        tiled_pm._check_deposit_smem(g, 504, "tsc", 3)
