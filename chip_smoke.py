@@ -10,18 +10,23 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    with nvcc and print the build time and ptxas report;
 3. kernels vs their plain PyTorch twins on the card: deposit and gather
    for NGP/CIC/TSC at drift 0 and 3, uniform and clustered particles, on
-   128^3, 256^3 and (z-blocked tiles) 512^3 grids, and the deposit with
-   every base on an edge of its window; two deposits must be bitwise
-   equal; kernel and twin times at 256^3 particles on 256^3, with the
-   one-call yardsticks (index_add_ for the deposit, grid_sample for the
-   gather);
+   128^3, 256^3 and (z-blocked tiles) 512^3 grids, and both with every
+   base on an edge of its window; two deposits must be bitwise equal, and
+   the gather bitwise its twin, also with 1, 2 and 4 field components,
+   each staging, and particles past their drift bound; kernel and twin
+   times at 256^3 particles on 256^3 and at 512^3 on 512^3 (z-blocked),
+   with the one-call yardsticks (index_add_ for the deposit, grid_sample
+   for the gather);
    then the multigrid stencil kernels (half-sweep, f(R) scalaron
    half-sweep for n = 1 and 2 with a scalar and a plane coefficient,
    residual norm, fused restriction, prolongation) at n = 16, 128, 256
-   and 512, every residual kind with and without rhs, two residual norms
-   bitwise equal; kernel and twin times at 256^3, the scalaron sweep's
-   at 512^3 too (random and converged cells); the deposit's device time
-   split between its kernel and the torch zeroing and fold;
+   and 512 (the prolongation also at n = 4, 6, 8 and 24, bitwise), every
+   residual kind with and without rhs, two residual norms bitwise equal;
+   kernel and twin times at 256^3, the scalaron sweep's and the
+   prolongation's at 512^3 too (the sweep on random and converged cells),
+   the prolongation beside the trilinear ``interpolate`` yardstick; the
+   deposit's device time split between its kernel and the torch zeroing
+   and fold;
 4. golden: the full-horizon configuration of
    ``tests/test_full_run_fidelity.py`` through ``pysco_tpu_torch.run``
    must match ``tests/golden_pk_32.json`` within 1e-4; two P(k) of one
@@ -50,7 +55,7 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    -> 20, no initial snapshot; all seven kernels must launch on every
    step; the median step, V-cycles per FAS and per Poisson solve,
    mean(u), the device-IC seconds, the peak device memory and the FAS
-   components' times at 512^3;
+   components' times at 512^3, the gather's at drift 0 and 1;
 11. f(R) n = 2: TSC, multigrid, 256^3 for a few steps.
 
 The last two lines of standard output are the kernels' JSON record (with
@@ -246,6 +251,109 @@ def _deposit_split(torch, tp, ps, ts, m, scheme, drift, tag, reps=3):
         f"zeroing and fold {total - kern:.3f} ms")
 
 
+def _gather_check(torch, tp, field, ps, ts, scheme, drift, tag):
+    """The gather kernel bitwise its twin (the same products and sums in
+    the same order, --fmad=false); returns |kernel - twin| (0)."""
+    got = tp.gather_vec_cl(field, ps, ts, scheme, drift)
+    ref = tp.gather_vec_cl_plain(field, ps, ts, scheme, drift)
+    err = float((got - ref).abs().max())
+    check(torch.equal(got, ref), f"gather not bitwise its twin: "
+          f"{err:.3e} ({tag})")
+    return err
+
+
+def _gather_variants(torch, tp, gen):
+    """The gather at 128^3 particles on 128^3 and (z-blocked) 512^3 with
+    1, 2 and 4 field components, every staging the kernel takes (all
+    components of the window at once, one a pass), and a state whose
+    particles moved past their drift bound (the kernel reads their cells
+    from the field), each bitwise its twin."""
+    from pysco_tpu_torch.ops.mesh import periodic_wrap
+
+    for m in (128, 512):
+        for scheme, drift in (("cic", 1), ("tsc", 3)):
+            ps, ts = _state(torch, tp, 128 ** 3, m, scheme, drift, True, gen)
+            g = tp._geometry(m, scheme, drift)
+            for ncomp in (1, 2, 4):
+                field = torch.randn((ncomp, m, m, m), generator=gen,
+                                    device="cuda")
+                ref = tp.gather_vec_cl_plain(field, ps, ts, scheme, drift)
+                for ncs in sorted({1, ncomp}):
+                    if tp._gather_smem(g, ncs) > tp._SMEM_LIMIT:
+                        continue
+                    got = tp._gather_cuda(field, ps, ts, drift, g, ncs)
+                    check(torch.equal(got, ref), f"gather with {ncomp} "
+                          f"components staged {ncs} a pass not bitwise its "
+                          f"twin (m={m} {scheme} drift={drift})")
+                del field, ref
+            # past the bound: up to drift + 1.95 cells of movement
+            far, fts = _state(torch, tp, 128 ** 3, m, scheme, 0, False, gen)
+            delta = (drift + 1.95) / m * (2 * torch.rand(
+                (3, far.shape[1]), generator=gen, device="cuda") - 1)
+            real = far[0] < tp.SENTINEL_MIN
+            far[:3] = torch.where(real, periodic_wrap(far[:3] + delta),
+                                  far[:3])
+            bad = int(tp.drift_violations(far, fts, m, scheme, drift))
+            check(bad > 0, "no particle past its drift bound")
+            field = torch.randn((3, m, m, m), generator=gen, device="cuda")
+            _gather_check(torch, tp, field, far, fts, scheme, drift,
+                          f"past the bound m={m} {scheme} drift={drift}")
+            log(f"[3 kernels] gather m={m} {scheme} drift={drift}: 1, 2 and 4 "
+                f"components, each staging, bitwise; {bad} particles past "
+                f"their bound bitwise")
+            del field, far, fts, ps, ts
+
+
+def _gather_staging(torch, tp, field, gen):
+    """The gather's two stagings timed one against the other at 256^3
+    particles on 256^3, where both fit a block: every component of the
+    window at once or one a pass (tiled_pm._gather_stage picks all
+    whenever they fit)."""
+    m, n = 256, 256 ** 3
+    for scheme, drift in (("cic", 1), ("tsc", 0)):
+        ps, ts = _state(torch, tp, n, m, scheme, drift, False, gen)
+        g = tp._geometry(m, scheme, drift)
+        t = {ncs: time_ms(torch, lambda: tp._gather_cuda(field, ps, ts, drift,
+                                                         g, ncs))
+             for ncs in (1, 3)}
+        log(f"[3 times] 256^3 {scheme} drift={drift} gather staging: all 3 "
+            f"components {t[3]:.3f} ms ({tp._gather_smem(g, 3)} B a block), "
+            f"one a pass {t[1]:.3f} ms ({tp._gather_smem(g, 1)} B); the "
+            f"wrapper stages {tp._gather_stage(g, 3, m, scheme, drift)}")
+        del ps, ts
+
+
+def _gather_512(torch, tp, gen):
+    """The gather at 512^3 particles on the 512^3 grid (z-blocked tiles),
+    CIC, uniform: bitwise its twin at drift 0 and 1, its time beside the
+    twin's, its bound and grid_sample's (logged: the record holds the
+    256^3 numbers)."""
+    m = 512
+    n = m ** 3
+    field = torch.randn((3, m, m, m), generator=gen, device="cuda")
+    for drift in (0, 1):
+        ps, ts = _state(torch, tp, n, m, "cic", drift, False, gen)
+        _gather_check(torch, tp, field, ps, ts, "cic", drift,
+                      f"512^3 drift={drift}")
+        t_k = time_ms(torch, lambda: tp.gather_vec_cl(field, ps, ts, "cic",
+                                                      drift))
+        t_p = time_ms(torch, lambda: tp.gather_vec_cl_plain(
+            field, ps, ts, "cic", drift), 3)
+        gat = bound(12 * n + ts.numel() * 4 + field.numel() * 4 + 12 * n,
+                    n * (15 + 8 * 3 + 8 * 3 * 2))
+        msg = (f"[3 times] 512^3 particles, 512^3 grid (z-blocked), CIC "
+               f"drift={drift}: gather {t_k:.3f} ms (twin {t_p:.3f}), bound "
+               f"{gat[0]:.4f} ms ({gat[1]})")
+        if drift == 0:
+            msg += (f", grid_sample "
+                    f"{_grid_sample_yardstick(torch, tp, ps, ts, field, m, False):.3f}"
+                    " ms")
+        log(msg)
+        del ps, ts
+    del field
+    torch.cuda.empty_cache()
+
+
 def time_ms(torch, fn, reps: int = 10) -> float:
     fn()
     torch.cuda.synchronize()
@@ -280,14 +388,10 @@ def phase_kernels(torch):
                     check(abs(mass - n) <= 1e-6 * n,
                           f"deposit mass {mass} != {n} (m={m} {scheme} "
                           f"drift={drift})")
-                    got = tp.gather_vec_cl(field, ps, ts, scheme, drift)
-                    ref = tp.gather_vec_cl_plain(field, ps, ts, scheme,
-                                                 drift)
-                    g_err = float((got - ref).abs().max())
-                    g_scale = float(ref.abs().max())
-                    check(g_err <= 1e-5 * g_scale,
-                          f"gather vs twin {g_err:.3e} > 1e-5 x "
-                          f"{g_scale:.3e} (m={m} {scheme} drift={drift})")
+                    g_err = _gather_check(torch, tp, field, ps, ts, scheme,
+                                          drift, f"m={m} {scheme} "
+                                          f"drift={drift} clustered="
+                                          f"{clustered}")
                     err["deposit"] = max(err["deposit"], d_err)
                     err["gather"] = max(err["gather"], g_err)
                     log(f"[3 kernels] m={m} n={n} {scheme} drift={drift} "
@@ -308,15 +412,25 @@ def phase_kernels(torch):
                 d_err, scale, mass = _deposit_check(
                     torch, tp, ps, ts, m, scheme, drift,
                     f"edge m={m} {scheme} drift={drift}")
+                field = torch.randn((3, m, m, m), generator=gen,
+                                    device="cuda")
+                g_err = _gather_check(torch, tp, field, ps, ts, scheme, drift,
+                                      f"edge m={m} {scheme} drift={drift}")
+                del field
                 err["deposit"] = max(err["deposit"], d_err)
+                err["gather"] = max(err["gather"], g_err)
                 log(f"[3 kernels] edge m={m} {scheme} drift={drift}: deposit"
                     f" |k-twin| {d_err:.2e} (max count {scale:.3e}), mass "
-                    f"{mass:.1f}")
+                    f"{mass:.1f}; gather bitwise")
+    _gather_variants(torch, tp, gen)
     for m, scheme, drift in ((256, "cic", 0), (256, "tsc", 3), (512, "cic", 0),
                              (512, "cic", 1), (512, "tsc", 3)):
-        log(f"[3 kernels] deposit shared memory {m}^3 {scheme} drift={drift}:"
-            f" {tp._deposit_smem(tp._geometry(m, scheme, drift))} B a block "
-            f"(live window {tp._geometry(m, scheme, drift).live_window})")
+        g = tp._geometry(m, scheme, drift)
+        ncs = tp._gather_stage(g, 3, m, scheme, drift)
+        log(f"[3 kernels] shared memory {m}^3 {scheme} drift={drift}: "
+            f"deposit {tp._deposit_smem(g)} B a block, gather "
+            f"{tp._gather_smem(g, ncs)} B staging {ncs} of 3 components "
+            f"(live window {g.live_window})")
     # times at the main path's shapes: 256^3 particles on the 256^3 grid
     m, n = 256, 256 ** 3
     times = {}
@@ -342,6 +456,9 @@ def phase_kernels(torch):
             f"{t['gather_plain']:.3f})")
         if (scheme, drift) == ("cic", 0):
             meta = _particle_meta(torch, tp, ps, ts, field, m, n, t)
+    _gather_staging(torch, tp, field, gen)
+    del field, ps, ts
+    _gather_512(torch, tp, gen)
     return err, times[("cic", 0)], meta
 
 
@@ -379,7 +496,7 @@ def _particle_meta(torch, tp, ps, ts, field, m, n, t):
             "gather": {"bound": gat, "library_ms": g_lib}}
 
 
-def _grid_sample_yardstick(torch, tp, ps, ts, field, m):
+def _grid_sample_yardstick(torch, tp, ps, ts, field, m, checked=True):
     """The gather's one-call yardstick: trilinear ``grid_sample``
     (align_corners=False) of the three-component field padded by one
     periodic cell a side, at the real columns' (z, y, x) positions
@@ -390,7 +507,8 @@ def _grid_sample_yardstick(torch, tp, ps, ts, field, m):
     gather_vec_cl_plain within 1e-5 x max on a smooth field (the low modes
     of the box): grid_sample unnormalises its coordinate in float32, about
     3e-5 of a cell at 256^3, which a white-noise field turns into errors
-    above 1e-5 x max (logged, not checked)."""
+    above 1e-5 x max (logged, not checked). checked=False times it
+    alone (at 512^3, where the 256^3 check stands for it)."""
     import math
 
     fn = torch.nn.functional
@@ -412,6 +530,9 @@ def _grid_sample_yardstick(torch, tp, ps, ts, field, m):
         want = tp.gather_vec_cl_plain(f, ps, ts, "cic")[:3, real]
         return float((got - want).abs().max()), float(want.abs().max())
 
+    if not checked:
+        _, call = sample(field)
+        return time_ms(torch, call)
     a = torch.arange(m, device="cuda", dtype=torch.float32) * (2 * math.pi / m)
     x, y, z = torch.meshgrid(a, a, a, indexing="ij")
     smooth = torch.stack([torch.sin(x + 2 * y), torch.cos(y - z),
@@ -489,6 +610,50 @@ def phase_scalaron_kernel(torch, np, lap, st, n, gen):
     return worst
 
 
+def _prolongation_check(torch, st, y, gen):
+    """add_prolongation bitwise its twin on a fine y and a random coarse
+    grid; returns |kernel - twin| (0)."""
+    n = y.shape[0]
+    xc = torch.randn((n // 2,) * 3, generator=gen, device="cuda")
+    got = st.add_prolongation(y, xc)
+    want = st.add_prolongation_plain(y, xc)
+    e = float((got - want).abs().max())
+    check(torch.equal(got, want),
+          f"add_prolongation not bitwise its twin: {e:.3e} (n={n})")
+    log(f"[3 stencil] n={n} add_prolongation bitwise its twin")
+    return e
+
+
+def _interpolate_yardstick(torch, y, xc):
+    """The prolongation's one-call yardstick: trilinear ``interpolate``
+    (scale 2, align_corners=False) of the coarse grid padded by one
+    periodic cell a side; fine index 2 + i of its output is
+    prolongation(xc)[i] (fine 2r = 3/4 x[r] + 1/4 x[r - 1], the twin's
+    weights). The pad is built outside the timed call, and the call adds
+    no y. Before it is timed, y plus its crop must meet the twin within
+    1e-5 x max: its weights are products of the per-axis fractions, not
+    the twin's three rounded blends. Returns (ms, |y + crop - twin|,
+    max |twin|)."""
+    from pysco_tpu_torch.ops import stencil as st
+
+    fn = torch.nn.functional
+    n = y.shape[0]
+    pad = fn.pad(xc[None, None], (1, 1, 1, 1, 1, 1), mode="circular")
+
+    def call():
+        return fn.interpolate(pad, scale_factor=2, mode="trilinear",
+                              align_corners=False)
+
+    crop = call()[0, 0, 2:n + 2, 2:n + 2, 2:n + 2]
+    want = st.add_prolongation_plain(y, xc)
+    err = float((y + crop - want).abs().max())
+    scale = float(want.abs().max())
+    check(err <= 1e-5 * scale, f"interpolate vs add_prolongation twin "
+          f"{err:.3e} > 1e-5 x {scale:.3e} (n={n})")
+    del crop, want
+    return time_ms(torch, call), err, scale
+
+
 def phase_stencil_kernels(torch, np):
     """Kernels 3-7 against their twins at the multigrid sizes."""
     from pysco_tpu_torch.models import laplacian as lap
@@ -542,14 +707,12 @@ def phase_stencil_kernels(torch, np):
                 err["restrict3"] = max(err["restrict3"], e_r)
                 log(f"[3 stencil] {tag}: residual_norm2 |k-twin| {e_n:.2e} "
                     f"(of {float(want):.6e}); restrict3 |k-twin| {e_r:.2e}")
-        xc = torch.randn((n // 2,) * 3, generator=gen, device="cuda")
-        got = st.add_prolongation(x, xc)
-        want = st.add_prolongation_plain(x, xc)
-        e = _agree("add_prolongation", got, want, 2e-6, f"n={n}")
-        err["add_prolongation"] = max(err["add_prolongation"], e)
-        log(f"[3 stencil] n={n} add_prolongation |k-twin| {e:.2e}, bitwise "
-            f"{int(torch.equal(got, want))}")
-        del x, b, rhs, xc, got, want
+        err["add_prolongation"] = max(err["add_prolongation"],
+                                      _prolongation_check(torch, st, x, gen))
+        del x, b, rhs
+    for n in (4, 6, 8, 24):  # the ragged tiles and, at n = 6, one thread a cell
+        x = torch.randn((n, n, n), generator=gen, device="cuda")
+        _prolongation_check(torch, st, x, gen)
     # times at the main path's grid, 256^3
     n = 256
     x, b, rhs = _grids(torch, n, gen)
@@ -637,10 +800,36 @@ def phase_stencil_kernels(torch, np):
         "add_prolongation": bound(2 * full + coarse, 13 * x.numel()),
     }
     for name, (ms, by) in meta.items():
-        log(f"[3 bounds] 256^3 {name}: {ms:.4f} ms ({by}); no single "
-            "PyTorch call computes it")
+        if name != "add_prolongation":
+            log(f"[3 bounds] 256^3 {name}: {ms:.4f} ms ({by}); no single "
+                "PyTorch call computes it")
     meta = {k: {"bound": v, "library_ms": None} for k, v in meta.items()}
+    meta["add_prolongation"]["library_ms"] = _prolongation_times(
+        torch, st, x, xc, meta["add_prolongation"]["bound"], times, gen)
     return err, times, meta
+
+
+def _prolongation_times(torch, st, x, xc, bnd, times, gen):
+    """The prolongation's yardstick at 256^3 (returned, for the record)
+    and the kernel, its twin and the yardstick at 512^3 with its bound
+    (logged)."""
+    lib, e, scale = _interpolate_yardstick(torch, x, xc)
+    log(f"[3 bounds] 256^3 add_prolongation: {bnd[0]:.4f} ms ({bnd[1]}); "
+        f"kernel {times['add_prolongation']:.4f} ms, interpolate {lib:.4f} "
+        f"ms (y + its crop vs the twin {e:.2e} of max {scale:.3e})")
+    n = 512
+    y = torch.randn((n, n, n), generator=gen, device="cuda")
+    xc5 = torch.randn((n // 2,) * 3, generator=gen, device="cuda")
+    t_k = time_ms(torch, lambda: st.add_prolongation(y, xc5))
+    t_p = time_ms(torch, lambda: st.add_prolongation_plain(y, xc5), 3)
+    lib5, e5, scale5 = _interpolate_yardstick(torch, y, xc5)
+    b5 = bound(2 * y.numel() * 4 + xc5.numel() * 4, 13 * y.numel())
+    log(f"[3 stencil times] 512^3 add_prolongation: {t_k:.4f} ms (twin "
+        f"{t_p:.3f}), bound {b5[0]:.4f} ms ({b5[1]}), interpolate "
+        f"{lib5:.4f} ms (vs the twin {e5:.2e} of max {scale5:.3e})")
+    del y, xc5
+    torch.cuda.empty_cache()
+    return lib
 
 
 def phase_pk_bitwise(torch):
@@ -988,6 +1177,7 @@ def _fr_components(torch, np, pos, vel, param, n, scheme, ncoarse):
         "derivative_fR (5-point)": lambda: mesh.derivative_fR(
             phi, u, dyn.fR_half_c2, 1, 5, True),
         "gather (drift 0)": lambda: tp.gather_vec_cl(force, ps, ts, scheme),
+        "gather (drift 1)": lambda: tp.gather_vec_cl(force, ps, ts, scheme, 1),
     }
     for name, fn in comps.items():
         log(f"[10 fr components] {n}^3 {name}: "

@@ -54,6 +54,7 @@ _SMEM_LIMIT = 232448
 # bytes kept for its block sort
 _DEPOSIT_CHUNK = 512
 _DEPOSIT_SORT_SCRATCH = 12288
+_GATHER_VEC = 4  # csrc/gather.cu: z cells of its 16-byte copies
 
 
 def reset_launches() -> None:
@@ -378,8 +379,10 @@ def _kernels():
     lib.pysco_deposit.restype = I
     lib.pysco_deposit_smem.argtypes = [I, I, I, I, I, I, I]
     lib.pysco_deposit_smem.restype = L
-    lib.pysco_gather.argtypes = [P, I, P, L, P, I, P, I, I, P]
+    lib.pysco_gather.argtypes = [P, I, P, L, P, I, P, I, I, I, I, I, I, P]
     lib.pysco_gather.restype = I
+    lib.pysco_gather_smem.argtypes = [I, I, I, I, I, I]
+    lib.pysco_gather_smem.restype = L
     return lib
 
 
@@ -508,39 +511,95 @@ def gather_vec_cl_plain(field_cl: torch.Tensor, position_sorted: torch.Tensor,
     return out
 
 
+def _gather_smem(g: Geometry, ncomp: int) -> int:
+    """Dynamic shared memory of a gather block in bytes, as
+    ``csrc/gather.cu`` lays it out: the live window's x-planes, each
+    ``ncomp`` components x its y rows x its z cells in whole 16-byte
+    groups (the periodic z line with its first group repeated after its
+    end; a z-blocked row with room for the 3 cells of the group before the
+    window's first cell)."""
+    wx, wy, wz = g.live_window
+    if g.nbz == 1:
+        wz += _GATHER_VEC
+    else:
+        wz = _round_up(wz + _GATHER_VEC - 1, _GATHER_VEC)
+    return 4 * wx * ncomp * wy * wz
+
+
+def _gather_stage(g: Geometry, ncomp: int, m: int, scheme: str,
+                  drift: int) -> int:
+    """Components a gather block stages a pass: all of them when their
+    windows fit a block's shared memory, else one. Raises before a launch
+    the card would refuse (one component beyond a block's shared
+    memory)."""
+    if _gather_smem(g, ncomp) <= _SMEM_LIMIT:
+        return ncomp
+    smem = _gather_smem(g, 1)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(
+            f"gather window of {smem} B exceeds the {_SMEM_LIMIT} B of "
+            f"shared memory a block can use (m={m}, {scheme}, drift={drift})"
+        )
+    return 1
+
+
+def _gather_cuda(field_cl, position_sorted, tile_starts, drift: int,
+                 g: Geometry, ncs: int) -> torch.Tensor:
+    """Launch the gather kernel (csrc/gather.cu), ``ncs`` (1 or all)
+    components staged a pass."""
+    ncomp, m = field_cl.shape[0], field_cl.shape[1]
+    n_up = position_sorted.shape[1]
+    out = torch.empty((4, n_up), dtype=F32, device=field_cl.device)
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _kernels().pysco_gather(
+            field_cl.data_ptr(), ncomp, position_sorted.data_ptr(), n_up,
+            tile_starts.data_ptr(), g.ntiles, out.data_ptr(), m, g.w, drift,
+            g.zbs, g.nbz, ncs, stream,
+        )
+    _raise_on(err, "gather")
+    return out
+
+
 def gather_vec_cl(field_cl: torch.Tensor, position_sorted: torch.Tensor,
                   tile_starts: torch.Tensor, scheme: str,
-                  drift: int = 0) -> torch.Tensor:
+                  drift: int = 0, zbs: int | None = None) -> torch.Tensor:
     """Interpolate a component-leading field (C, M, M, M) at tile-sorted
     columns; returns (4, N_up) with rows C..3 and the columns outside
-    every tile (the sentinel tail) zero.
+    every tile (the sentinel tail) zero. ``drift`` widens the windows the
+    kernel stages for a stale sort (as :func:`deposit`'s); ``zbs``
+    overrides the z-block size of the tiles (tests only), and
+    ``tile_starts`` must hold one entry more than that geometry's tiles.
 
-    The gather reads the whole periodic field, so ``drift`` changes
-    nothing for a particle inside its widened window. Beyond the window
-    the JAX kernel returns 0 (or a partial sum) where this one still
-    interpolates; a run aborts on such a step (:func:`drift_violations`).
+    The result is the twin's, which reads the whole periodic field: a
+    particle past its drift window is still interpolated at its position.
+    There the JAX kernel returns 0 (or a partial sum); a run aborts on such
+    a step (:func:`drift_violations`). On the card the field must be
+    16-byte aligned (the kernel copies it in 16-byte groups).
     """
+    scheme = scheme.casefold()
+    ncomp, m = field_cl.shape[0], field_cl.shape[1]
+    g = _geometry(m, scheme, drift, zbs)
+    if tuple(tile_starts.shape) != (g.ntiles + 1,):
+        raise ValueError(f"tile_starts: expected shape {(g.ntiles + 1,)} "
+                         f"for m={m}, zbs={g.zbs}; got "
+                         f"{tuple(tile_starts.shape)}")
     dev = field_cl.device.type
     if dev == "cpu":
         return gather_vec_cl_plain(field_cl, position_sorted, tile_starts,
                                    scheme, drift)
     if dev != "cuda":
         raise ValueError(f"gather_vec_cl: no kernel for device {dev!r}")
-    ncomp, m = field_cl.shape[0], field_cl.shape[1]
     n_up = position_sorted.shape[1]
     if not 1 <= ncomp <= 4:
         raise ValueError(f"gather_vec_cl: 1 to 4 components, got {ncomp}")
     _check_cuda("field_cl", field_cl, F32, (ncomp, m, m, m))
     _check_cuda("position_sorted", position_sorted, F32, (4, n_up))
-    _check_cuda("tile_starts", tile_starts, I32)
-    out = torch.empty((4, n_up), dtype=F32, device=field_cl.device)
-    with torch.cuda.device(out.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _kernels().pysco_gather(
-            field_cl.data_ptr(), ncomp, position_sorted.data_ptr(), n_up,
-            tile_starts.data_ptr(), tile_starts.shape[0] - 1, out.data_ptr(),
-            m, _WIDTH[scheme.casefold()], stream,
-        )
-    _raise_on(err, "gather")
+    _check_cuda("tile_starts", tile_starts, I32, (g.ntiles + 1,))
+    if field_cl.data_ptr() % 16:
+        raise ValueError("gather_vec_cl: the kernel needs a 16-byte aligned "
+                         "field")
+    ncs = _gather_stage(g, ncomp, m, scheme, drift)
+    out = _gather_cuda(field_cl, position_sorted, tile_starts, drift, g, ncs)
     LAUNCHES["gather"] += 1
     return out

@@ -127,10 +127,10 @@ def test_kernels_match_twins(cuda, scheme, drift, case):
     field = torch.rand((3, m, m, m), device=cuda)
     got = tiled_pm.gather_vec_cl(field, ps, ts, scheme, drift)
     assert tiled_pm.LAUNCHES["gather"] == before["gather"] + 1
-    # the same products and sums in the same order (--fmad=false)
-    torch.testing.assert_close(
-        got, tiled_pm.gather_vec_cl_plain(field, ps, ts, scheme, drift),
-        rtol=1e-6, atol=1e-7)
+    # the same products and sums in the same order (--fmad=false), from the
+    # staged window or, past it, from the field: bitwise the twin
+    assert torch.equal(
+        got, tiled_pm.gather_vec_cl_plain(field, ps, ts, scheme, drift))
 
 
 @pytest.mark.parametrize("m,zbs,scheme,drift,case", [
@@ -146,6 +146,58 @@ def test_zblocked_kernel_matches_twin(cuda, m, zbs, scheme, drift, case):
     assert torch.equal(grid, tiled_pm.deposit(ps, ts, m, scheme, drift, zbs))
     torch.testing.assert_close(grid, twin, rtol=0,
                                atol=1e-6 * float(twin.max()))
+    field = torch.rand((3, m, m, m), device=cuda)
+    got = tiled_pm.gather_vec_cl(field, ps, ts, scheme, drift, zbs)
+    assert torch.equal(
+        got, tiled_pm.gather_vec_cl_plain(field, ps, ts, scheme, drift))
+
+
+@pytest.mark.parametrize("ncomp", [1, 2, 3, 4])
+@pytest.mark.parametrize("m,zbs,scheme,drift", [
+    (32, None, "cic", 0), (32, None, "tsc", 3), (32, 8, "ngp", 2),
+    (32, 8, "tsc", 1)])
+def test_gather_components_match_twin(cuda, ncomp, m, zbs, scheme, drift):
+    """1 to 4 components, each staging the kernel takes (all components of
+    the window at once, one a pass), bitwise the twin; rows C..3 and the
+    sentinel tail zero."""
+    _, ps, ts = _case("clustered", m, scheme, drift, cuda, zbs)
+    field = torch.randn((ncomp, m, m, m), device=cuda)
+    twin = tiled_pm.gather_vec_cl_plain(field, ps, ts, scheme, drift)
+    got = tiled_pm.gather_vec_cl(field, ps, ts, scheme, drift, zbs)
+    assert torch.equal(got, twin)
+    g = tiled_pm._geometry(m, scheme, drift, zbs)
+    for ncs in sorted({1, ncomp}):
+        assert torch.equal(tiled_pm._gather_cuda(field, ps, ts, drift, g,
+                                                 ncs), twin)
+    assert not got[ncomp:].any() and not got[:, int(ts[-1]):].any()
+
+
+@pytest.mark.parametrize("m,zbs,scheme,drift", [
+    (32, None, "cic", 0), (32, None, "tsc", 1), (32, 8, "cic", 1),
+    (32, 8, "tsc", 2)])
+def test_gather_beyond_drift_bound_matches_twin(cuda, m, zbs, scheme, drift):
+    """Particles that moved past their drift bound: their support leaves
+    the staged window and the kernel reads it from the field, still
+    bitwise the twin."""
+    ps, ts = _state(m, 3000, scheme, drift + 2, 5, cuda, zbs)
+    assert int(tiled_pm.drift_violations(ps, ts, m, scheme, drift, zbs)) > 0
+    field = torch.randn((3, m, m, m), device=cuda)
+    assert torch.equal(
+        tiled_pm.gather_vec_cl(field, ps, ts, scheme, drift, zbs),
+        tiled_pm.gather_vec_cl_plain(field, ps, ts, scheme, drift))
+
+
+def test_gather_smem_matches_kernel(cuda):
+    """The wrapper's reckoning of the gather's shared memory is the
+    kernel's own."""
+    lib = tiled_pm._kernels()
+    for m, scheme, drift, zbs in ((32, "cic", 0, None), (32, "tsc", 3, 8),
+                                  (256, "cic", 0, None), (256, "tsc", 3, None),
+                                  (512, "cic", 1, None), (504, "tsc", 3, None)):
+        g = tiled_pm._geometry(m, scheme, drift, zbs)
+        for ncs in (1, 2, 3, 4):
+            assert lib.pysco_gather_smem(m, g.w, drift, g.zbs, g.nbz,
+                                         ncs) == tiled_pm._gather_smem(g, ncs)
 
 
 def test_deposit_smem_matches_kernel(cuda):
@@ -168,6 +220,12 @@ def test_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError, match="contiguous CUDA"):
         tiled_pm.gather_vec_cl(torch.zeros((3, 16, 16, 16), device=cuda).mT,
                                ps, ts, "cic")
+    field = torch.zeros((3, 16, 16, 16), device=cuda)
+    with pytest.raises(ValueError, match="expected shape"):
+        tiled_pm.gather_vec_cl(field, ps, ts, "cic", zbs=8)
+    shifted = torch.zeros(3 * 16 ** 3 + 1, device=cuda)[1:].view(3, 16, 16, 16)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tiled_pm.gather_vec_cl(shifted, ps, ts, "cic")
 
 
 def test_run_reproducible_and_golden(cuda, tmp_path):
@@ -263,12 +321,28 @@ def test_residual_kernels_match_twins(cuda, kind, q):
             assert torch.equal(only, outs[0])
 
 
-@pytest.mark.parametrize("n", [4, 16, 32])
+@pytest.mark.parametrize("n", [4, 6, 8, 16, 24, 32, 256])
 def test_add_prolongation_matches_twin(cuda, n):
+    """The plane march (n a multiple of 4, ragged tiles below 128 and at
+    24) and the per-cell kernel (n = 6), bitwise the twin."""
     y, xc, _ = _grids(n, 3, cuda)
     xc = xc[: n // 2, : n // 2, : n // 2].contiguous()
+    before = stencil.LAUNCHES["add_prolongation"]
     got = stencil.add_prolongation(y, xc)
-    assert _rel(got, stencil.add_prolongation_plain(y, xc)) <= 2e-6
+    assert stencil.LAUNCHES["add_prolongation"] == before + 1
+    assert torch.equal(got, stencil.add_prolongation_plain(y, xc))
+
+
+def test_add_prolongation_misaligned_matches_twin(cuda):
+    """A y that is not 16-byte aligned takes the per-cell kernel."""
+    n = 16
+    y, xc, _ = _grids(n, 6, cuda)
+    flat = torch.empty(n ** 3 + 1, device=cuda)
+    shifted = flat[1:].view(n, n, n)
+    shifted.copy_(y)
+    xc = xc[: n // 2, : n // 2, : n // 2].contiguous()
+    assert torch.equal(stencil.add_prolongation(shifted, xc),
+                       stencil.add_prolongation_plain(y, xc))
 
 
 def test_stencil_wrappers_check_inputs(cuda):

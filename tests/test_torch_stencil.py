@@ -172,7 +172,7 @@ def test_restrict3_twin_matches_pallas(kind, q, with_rhs):
     assert torch.equal(only, got[0])
 
 
-@pytest.mark.parametrize("n", [8, 16])
+@pytest.mark.parametrize("n", [8, 16, 24])
 def test_add_prolongation_twin_matches_pallas(n):
     x, _, _ = _fields(n, 5)
     xc = np.random.default_rng(9).standard_normal(
@@ -184,6 +184,19 @@ def test_add_prolongation_twin_matches_pallas(n):
         got.numpy(), np.array(_j(x) + jmesh.prolongation(_j(xc))))
     assert torch.equal(mesh.add_prolongation(torch.as_tensor(x),
                                              torch.as_tensor(xc)), got)
+
+
+@pytest.mark.parametrize("n", [4, 6])
+def test_add_prolongation_small_grids_match_jax(n):
+    """The grids below the Pallas kernel's blocks (the card's plane march
+    takes n = 4, its per-cell kernel n = 6): the twin is bitwise the JAX
+    package's XLA form."""
+    x, _, _ = _fields(n, 5)
+    xc = np.random.default_rng(9).standard_normal(
+        (n // 2,) * 3).astype(np.float32)
+    got = stencil.add_prolongation(torch.as_tensor(x), torch.as_tensor(xc))
+    np.testing.assert_array_equal(
+        got.numpy(), np.array(_j(x) + jmesh.prolongation(_j(xc))))
 
 
 @pytest.mark.parametrize("n", [4, 16, 32])

@@ -198,19 +198,29 @@ print("@@" + json.dumps(out))
 """
 
 
-def test_zblocked_twins_match_pallas(tmp_path):
-    """z-blocked tiles (nbz > 1): the JAX engine takes its z-block size
-    from PYSCO_TPU_ZB at import, so it runs in a subprocess with ZB=8; the
-    port is given zbs=8 as an argument."""
+@pytest.fixture(scope="module")
+def zb_child(tmp_path_factory):
+    """The JAX engine's z-blocked states and results (m = 16, z-block 8):
+    it takes its z-block size from PYSCO_TPU_ZB at import, so it runs once
+    per module in a subprocess with ZB=8. Returns (directory, violation
+    counts by "scheme_drift")."""
+    out = tmp_path_factory.mktemp("zb")
     env = dict(os.environ, PYSCO_TPU_ZB="8", JAX_PLATFORMS="cpu")
     r = subprocess.run(
-        [sys.executable, "-c", _ZB_CHILD, str(tmp_path)], env=env,
+        [sys.executable, "-c", _ZB_CHILD, str(out)], env=env,
         capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     )
     assert r.returncode == 0, r.stderr[-2000:]
     viol = json.loads([ln for ln in r.stdout.splitlines()
                        if ln.startswith("@@")][-1][2:])
+    return out, viol
+
+
+def test_zblocked_twins_match_pallas(zb_child):
+    """z-blocked tiles (nbz > 1): the port is given zbs=8 as an
+    argument."""
+    tmp_path, viol = zb_child
     m, zbs = 16, 8
     for key, want_viol in viol.items():
         scheme, drift = key.split("_")[0], int(key.split("_")[1])
@@ -226,8 +236,33 @@ def test_zblocked_twins_match_pallas(tmp_path):
         np.testing.assert_allclose(grid, load("grid"),
                                    atol=1e-6 * load("grid").max(), rtol=0)
         acc = tiled_pm.gather_vec_cl(_t(load("f")), ps, ts, scheme,
-                                     drift).numpy()
+                                     drift, zbs).numpy()
         np.testing.assert_allclose(acc, load("acc"), atol=1e-5, rtol=1e-5)
+
+
+def test_gather_zbs_matches_pallas(zb_child):
+    """The ``zbs`` argument of the gather: with z-blocks of 8 it meets the
+    z-blocked JAX gather; the tile starts of z-blocked tiles without it
+    (or of unblocked tiles with it) do not match the tiles' count, and the
+    wrapper raises before any kernel or twin runs."""
+    tmp_path, _ = zb_child
+    m, zbs = 16, 8
+    for key in ("cic_0", "tsc_2"):
+        scheme, drift = key.split("_")[0], int(key.split("_")[1])
+
+        def load(s):
+            return np.load(tmp_path / f"{key}_{s}.npy")
+
+        field, ps, ts = _t(load("f")), _t(load("ps")), _t(load("ts"))
+        acc = tiled_pm.gather_vec_cl(field, ps, ts, scheme, drift, zbs)
+        np.testing.assert_allclose(acc.numpy(), load("acc"), atol=1e-5,
+                                   rtol=1e-5)
+        assert not acc[3].any() and not acc[:, int(ts[-1]):].any()
+        with pytest.raises(ValueError, match="expected shape"):
+            tiled_pm.gather_vec_cl(field, ps, ts, scheme, drift)
+        _, _, ts_flat = tiled_pm.sort_particles(ps, ps, m, scheme)
+        with pytest.raises(ValueError, match="expected shape"):
+            tiled_pm.gather_vec_cl(field, ps, ts_flat, scheme, drift, zbs)
 
 
 def test_zblocked_sort_keys():
@@ -295,6 +330,63 @@ def test_live_window_holds_every_bounded_cell(m, zbs, scheme, drift):
     gp = tiled_pm._padded_sums_plain(ps, ts, m, scheme, drift, g)
     assert int(torch.count_nonzero(gp[~live])) == 0
     assert float(gp[live].sum()) == pytest.approx(2000, rel=1e-5)
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+def test_gather_fits_every_deposit_shape(scheme):
+    """At one component a pass the gather's shared memory (the live window,
+    its z rows in whole 16-byte groups) fits every shape the deposit
+    accepts: the deposit adds its sort scratch and staged particles to the
+    same window."""
+    for m in range(8, 2049, 8):
+        for drift in range(4):
+            g = tiled_pm._geometry(m, scheme, drift)
+            if tiled_pm._deposit_smem(g) > tiled_pm._SMEM_LIMIT:
+                continue
+            assert tiled_pm._gather_smem(g, 1) < tiled_pm._deposit_smem(g)
+            assert tiled_pm._gather_stage(g, 3, m, scheme, drift) in (1, 3)
+
+
+def test_gather_smem_reckoning():
+    """The wrapper's reckoning of the gather kernel's shared memory
+    (csrc/gather.cu's layout), its choice between every component at once
+    and one a pass, and its refusal of a window the card cannot hold."""
+    limit = tiled_pm._SMEM_LIMIT
+    # 256^3 CIC at drift 0: 2 x-planes x 9 rows x the z line of 256 cells
+    # and its first 4-cell group repeated
+    g = tiled_pm._geometry(256, "cic", 0)
+    assert g.live_window == (2, 9, 256)
+    assert tiled_pm._gather_smem(g, 1) == 4 * 2 * 9 * (256 + 4) == 18720
+    assert tiled_pm._gather_smem(g, 3) == 3 * 18720 <= limit
+    assert tiled_pm._gather_stage(g, 3, 256, "cic", 0) == 3
+    # 512^3 CIC at drift 1, z-blocked: 4 x 11 x 131 cells, a row padded to
+    # 136 (whole groups, the window starting 3 cells into its first)
+    g = tiled_pm._geometry(512, "cic", 1)
+    assert g.live_window == (4, 11, 131)
+    assert tiled_pm._gather_smem(g, 1) == 4 * 4 * 11 * 136 == 23936
+    assert tiled_pm._gather_smem(g, 3) == 3 * 23936 <= limit
+    assert tiled_pm._gather_stage(g, 3, 512, "cic", 1) == 3
+    # 256^3 CIC at drift 1: all three fit a block (one an SM)
+    g = tiled_pm._geometry(256, "cic", 1)
+    assert tiled_pm._gather_smem(g, 3) == 3 * 4 * 4 * 11 * 260 <= limit
+    assert tiled_pm._gather_stage(g, 3, 256, "cic", 1) == 3
+    # past a block's shared memory, one component a pass
+    for m, scheme, drift in ((256, "cic", 3), (256, "tsc", 3),
+                             (512, "tsc", 3)):
+        g = tiled_pm._geometry(m, scheme, drift)
+        assert tiled_pm._gather_smem(g, 3) > limit
+        assert tiled_pm._gather_stage(g, 3, m, scheme, drift) == 1
+        assert tiled_pm._gather_smem(g, 1) <= limit
+    # 1, 2 and 4 components: the limit decides each
+    g = tiled_pm._geometry(128, "tsc", 3)
+    assert [tiled_pm._gather_stage(g, c, 128, "tsc", 3)
+            for c in (1, 2, 3, 4)] == [1, 2, 3, 1]
+    # a 504-cell z line at TSC drift 3 does not fit even one component:
+    # the wrapper raises before any launch (as the deposit's does)
+    g = tiled_pm._geometry(504, "tsc", 3)
+    assert tiled_pm._gather_smem(g, 1) > limit
+    with pytest.raises(ValueError, match="shared memory"):
+        tiled_pm._gather_stage(g, 3, 504, "tsc", 3)
 
 
 def test_deposit_smem_reckoning():
