@@ -20,13 +20,16 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    then the multigrid stencil kernels (half-sweep, f(R) scalaron
    half-sweep for n = 1 and 2 with a scalar and a plane coefficient,
    residual norm, fused restriction, prolongation) at n = 16, 128, 256
-   and 512 (the prolongation also at n = 4, 6, 8 and 24, bitwise), every
-   residual kind with and without rhs, two residual norms bitwise equal;
-   kernel and twin times at 256^3, the scalaron sweep's and the
-   prolongation's at 512^3 too (the sweep on random and converged cells),
-   the prolongation beside the trilinear ``interpolate`` yardstick; the
-   deposit's device time split between its kernel and the torch zeroing
-   and fold;
+   and 512 (the prolongation and the residual norm also at n = 4, 6, 8,
+   24, 36 and 132: the small and ragged grids), every residual kind with
+   and without rhs, two residual norms bitwise equal; kernel and twin
+   times at 256^3, the scalaron sweep's, the prolongation's and the
+   residual norm's at 512^3 too (the sweep on random and converged
+   cells; the norm per kind beside its bound, and its designs one
+   against another: the plane march with 8 and 16 rows a tile, without
+   its second launch, and one thread a cell), the prolongation beside
+   the trilinear ``interpolate`` yardstick; the deposit's device time
+   split between its kernel and the torch zeroing and fold;
 4. golden: the full-horizon configuration of
    ``tests/test_full_run_fidelity.py`` through ``pysco_tpu_torch.run``
    must match ``tests/golden_pk_32.json`` within 1e-4; two P(k) of one
@@ -55,8 +58,20 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    -> 20, no initial snapshot; all seven kernels must launch on every
    step; the median step, V-cycles per FAS and per Poisson solve,
    mean(u), the device-IC seconds, the peak device memory and the FAS
-   components' times at 512^3, the gather's at drift 0 and 1;
-11. f(R) n = 2: TSC, multigrid, 256^3 for a few steps.
+   components' times at 512^3, the gather's at drift 0 and 1; then the
+   rest of a lazy step itemised (kick, drift and wrap, the drift-bound
+   count, the sources, the truncation error, the diagnostics) beside the
+   force evaluation and the step as wholes, by CUDA events and by the
+   host clock;
+11. f(R) n = 2: TSC, multigrid, 256^3 for a few steps;
+12. the run extras: ``run_paired`` at the configuration of
+   ``tests/test_e2e.py::test_run_paired`` (three output trees, the
+   averaged P(k) the mean and the summed modes of the pair); a 128^3
+   multigrid run at verbose = 2 with ``profile_dir`` against the same run
+   without them (one residual line a V-cycle, one component-timing line
+   with four positive times, a trace file that names the port's kernels,
+   launch counts and P(k) unchanged); the scatter engine reordered by
+   Morton key every 2 steps, twice, against a run that never reorders.
 
 The last two lines of standard output are the kernels' JSON record (with
 each kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -610,6 +625,95 @@ def phase_scalaron_kernel(torch, np, lap, st, n, gen):
     return worst
 
 
+def _norm2_check(torch, st, x, b, rhs):
+    """residual_norm2 against its twin for the five kinds with and without
+    rhs: within 5e-6 of the twin's sum (the kernel adds float32 squares
+    in double, the twin in float32 by torch's tree), two calls bitwise
+    equal. Returns the largest |kernel - twin|."""
+    n = x.shape[0]
+    worst = 0.0
+    for kind, q in RESIDUAL_KINDS:
+        bb = None if kind == "laplacian" else b
+        for r in (None, rhs):
+            tag = f"n={n} {kind} rhs={int(r is not None)}"
+            got = st.residual_norm2(kind, x, bb, r, q)
+            again = st.residual_norm2(kind, x, bb, r, q)
+            want = st.residual_norm2_plain(kind, x, bb, r, q)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again),
+                  f"residual_norm2 not bitwise reproducible ({tag})")
+            e = _agree("residual_norm2", got, want, 5e-6, tag)
+            worst = max(worst, e)
+            log(f"[3 stencil] {tag}: residual_norm2 |k-twin| {e:.2e} (of "
+                f"{float(want):.6e})")
+    return worst
+
+
+def _norm2_variant(torch, st, kind, x, b, rhs, q, tile_rows, finish=True):
+    """residual_norm2 by one of the designs csrc/residual.cu keeps for
+    timing: the plane march with ``tile_rows`` (8 or 16) rows a tile, or
+    (0) one thread a cell; ``finish`` False leaves the partials unsummed.
+    Not counted in LAUNCHES: the main path never takes it."""
+    code, needs_b, n, n2, h2, qf = st._kind_args(kind, x, b, q)
+    lib = st._kernels()
+    partial = torch.empty(lib.pysco_norm2_variant_blocks(n, tile_rows),
+                          dtype=torch.float64, device=x.device)
+    out = torch.empty((), dtype=torch.float32, device=x.device)
+    e = lib.pysco_residual_norm2_variant(
+        tile_rows, int(finish), code, x.data_ptr(),
+        st._ptr(b if needs_b else None), st._ptr(rhs), n, n2, h2, qf,
+        partial.data_ptr(), out.data_ptr(), st._stream(out))
+    st._raise_on(e, "residual_norm2 variant")
+    return out
+
+
+def _norm2_kind_times(torch, st, x, b, rhs):
+    """residual_norm2's time for each kind, without and with a rhs, each
+    beside its bound: x, b (not ``laplacian``) and rhs read once."""
+    n = x.shape[0]
+    for kind, q in RESIDUAL_KINDS:
+        bb = None if kind == "laplacian" else b
+        parts = []
+        for r in (None, rhs):
+            t = time_ms(torch, lambda: st.residual_norm2(kind, x, bb, r, q))
+            reads = 1 + (bb is not None) + (r is not None)
+            bnd = bound(reads * x.numel() * 4, 11 * x.numel())
+            parts.append(f"{'with' if r is not None else 'no'} rhs {t:.4f} "
+                         f"ms (bound {bnd[0]:.4f})")
+        log(f"[3 stencil times] {n}^3 residual_norm2 {kind}: "
+            + ", ".join(parts))
+
+
+def _norm2_times(torch, st, x, b, rhs):
+    """The norm's designs timed one against another on an n^3 lattice:
+    the wrapper's kernel, the march with 8 and 16 rows a tile, the march
+    without its second launch, and one thread a cell; ``linear`` and
+    ``cubic`` with a rhs, each beside its bound (x, b and rhs read once).
+    The 8-row march is the wrapper's kernel, bitwise."""
+    n = x.shape[0]
+    for kind, r, q in (("linear", None, None), ("cubic", rhs, -0.27)):
+        want = st.residual_norm2(kind, x, b, r, q)
+        t = {"wrapper": time_ms(torch, lambda: st.residual_norm2(
+            kind, x, b, r, q))}
+        for name, rows, finish in (("march 8 rows", 8, True),
+                                   ("march 16 rows", 16, True),
+                                   ("march 8 rows, partials only", 8, False),
+                                   ("one thread a cell", 0, True)):
+            got = _norm2_variant(torch, st, kind, x, b, r, q, rows, finish)
+            if finish:
+                _agree("residual_norm2 variant", got, want, 1e-6,
+                       f"n={n} {kind} {name}")
+            if rows == 8 and finish:
+                check(torch.equal(got, want), "the 8-row march is not the "
+                      f"wrapper's kernel (n={n} {kind})")
+            t[name] = time_ms(torch, lambda: _norm2_variant(
+                torch, st, kind, x, b, r, q, rows, finish))
+        bnd = bound((2 + (r is not None)) * x.numel() * 4, 11 * x.numel())
+        log(f"[3 norm2 designs] {n}^3 {kind} rhs={int(r is not None)}: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+            + f"; bound {bnd[0]:.4f} ms ({bnd[1]})")
+
+
 def _prolongation_check(torch, st, y, gen):
     """add_prolongation bitwise its twin on a fine y and a random coarse
     grid; returns |kernel - twin| (0)."""
@@ -684,17 +788,12 @@ def phase_stencil_kernels(torch, np):
                     f"rhs={int(r is not None)}: |k-twin| {e:.2e}, bitwise "
                     f"{int(torch.equal(got, want))}")
         del red, black, h2b, rhs_p
+        err["residual_norm2"] = max(err["residual_norm2"],
+                                    _norm2_check(torch, st, x, b, rhs))
         for kind, q in RESIDUAL_KINDS:
             bb = None if kind == "laplacian" else b
             for r in (None, rhs):
                 tag = f"n={n} {kind} rhs={int(r is not None)}"
-                got = st.residual_norm2(kind, x, bb, r, q)
-                again = st.residual_norm2(kind, x, bb, r, q)
-                want = st.residual_norm2_plain(kind, x, bb, r, q)
-                torch.cuda.synchronize()
-                check(torch.equal(got, again),
-                      f"residual_norm2 not bitwise reproducible ({tag})")
-                e_n = _agree("residual_norm2", got, want, 5e-6, tag)
                 outs = st.restrict3(kind, x, bb, r, q)
                 twins = st.restrict3_plain(kind, x, bb, r, q)
                 check(len(outs) == len(twins), f"restrict3 outputs ({tag})")
@@ -703,16 +802,19 @@ def phase_stencil_kernels(torch, np):
                 (only,) = st.restrict3(kind, x, bb, r, q, residual_only=True)
                 check(torch.equal(only, outs[0]),
                       f"restrict3 residual_only differs ({tag})")
-                err["residual_norm2"] = max(err["residual_norm2"], e_n)
                 err["restrict3"] = max(err["restrict3"], e_r)
-                log(f"[3 stencil] {tag}: residual_norm2 |k-twin| {e_n:.2e} "
-                    f"(of {float(want):.6e}); restrict3 |k-twin| {e_r:.2e}")
+                log(f"[3 stencil] {tag}: restrict3 |k-twin| {e_r:.2e}")
         err["add_prolongation"] = max(err["add_prolongation"],
                                       _prolongation_check(torch, st, x, gen))
         del x, b, rhs
-    for n in (4, 6, 8, 24):  # the ragged tiles and, at n = 6, one thread a cell
-        x = torch.randn((n, n, n), generator=gen, device="cuda")
+    # the prolongation's ragged tiles and, at n = 6, one thread a cell; the
+    # norm's per-cell kernel (n < 32 or not a multiple of 4) and, at n = 36
+    # and 132, its march over ragged tiles
+    for n in (4, 6, 8, 24, 36, 132):
+        x, b, rhs = _grids(torch, n, gen)
         _prolongation_check(torch, st, x, gen)
+        err["residual_norm2"] = max(err["residual_norm2"],
+                                    _norm2_check(torch, st, x, b, rhs))
     # times at the main path's grid, 256^3
     n = 256
     x, b, rhs = _grids(torch, n, gen)
@@ -778,11 +880,17 @@ def phase_stencil_kernels(torch, np):
     del b_red, b_black, b_hb
     for kind, q in RESIDUAL_KINDS[1:]:
         bb = None if kind == "laplacian" else b
-        t_n = time_ms(torch, lambda: st.residual_norm2(kind, x, bb, q=q))
         t_r = time_ms(torch, lambda: st.restrict3(kind, x, bb, q=q))
         t_rr = time_ms(torch, lambda: st.restrict3(kind, x, bb, rhs, q=q))
-        log(f"[3 stencil times] 256^3 {kind}: residual_norm2 {t_n:.3f} ms, "
-            f"restrict3 {t_r:.3f} ms (with rhs {t_rr:.3f} ms)")
+        log(f"[3 stencil times] 256^3 {kind}: restrict3 {t_r:.3f} ms (with "
+            f"rhs {t_rr:.3f} ms)")
+    _norm2_kind_times(torch, st, x, b, rhs)
+    _norm2_times(torch, st, x, b, rhs)
+    x5, b5, rhs5 = _grids(torch, 512, gen)
+    _norm2_kind_times(torch, st, x5, b5, rhs5)
+    _norm2_times(torch, st, x5, b5, rhs5)
+    del x5, b5, rhs5
+    torch.cuda.empty_cache()
     # bounds of the timed calls: each operand read once, each output
     # written once, in bytes; the operations per cell (neighbour sum 5,
     # update 4 for the half-sweep; the neighbour cubes 12, p 2 and 3
@@ -1132,7 +1240,7 @@ def _fr_components(torch, np, pos, vel, param, n, scheme, ncoarse):
     snapshot re-sorted and re-deposited, the scalaron and the potential
     solved to the stall, then each piece timed with CUDA events (mean of
     5 after a warm-up)."""
-    from pysco_tpu_torch import solver
+    from pysco_tpu_torch import integrate, solver
     from pysco_tpu_torch.cosmo import generate
     from pysco_tpu_torch.models import cubic
     from pysco_tpu_torch.models import laplacian as lap
@@ -1184,6 +1292,53 @@ def _fr_components(torch, np, pos, vel, param, n, scheme, ncoarse):
             f"{time_ms(torch, fn, 5):.3f} ms")
     log(f"[10 fr components] mean(u) of the stalled solve "
         f"{float(u.double().mean()):.7f}")
+    # the rest of a lazy step, itemised: the eager passes around the force
+    # evaluation, then the force evaluation and the step as wholes (a dt
+    # too small to move a particle out of its window)
+    cfg = solver.config_from_param(p)
+    acc = tp.gather_vec_cl(force, ps, ts, scheme, 1)
+    dt, half = integrate._half_dt(1e-7)
+    rest = {
+        "kick (one of two a step)": lambda: vs - acc * half,
+        "drift and wrap": lambda: mesh.periodic_wrap(ps + vs * dt),
+        "drift-bound count": lambda: tp.drift_violations(ps, ts, n, scheme,
+                                                         1),
+        "density normalisation": lambda: solver._normalise(cfg, density),
+        "scalaron source f1 density + f2": lambda: dyn.fR_f1 * density
+        + dyn.fR_f2,
+        "Poisson source": lambda: solver._newton_rhs(density, dyn),
+        "potential rescaling": lambda: phi * dyn.potential_scaling,
+        "truncation_error (Poisson)": lambda: lap.truncation_error(phi),
+        "diagnostics (max |acc|, max |vel|, mean u)":
+            lambda: integrate._diagnostics(acc, vs, u, 0),
+    }
+    for name, fn in rest.items():
+        log(f"[10 fr step items] {n}^3 {name}: "
+            f"{time_ms(torch, fn, 5):.3f} ms")
+
+    def force_eval():
+        return solver._pm_lazy_impl(cfg, 1, False, ps, vs, ts, phi, u, dyn)
+
+    def whole_step():
+        return integrate.step_lazy_impl(cfg, "leapfrog", 1, False, ps, vs,
+                                        acc, phi, u, ts, dyn, 1e-7)
+
+    for name, fn in (("force evaluation, drift 1 (solver._pm_lazy_impl)",
+                      force_eval),
+                     ("whole lazy step, drift 1 (integrate.step_lazy_impl)",
+                      whole_step)):
+        mg.reset_stats()
+        dev = time_ms(torch, fn, 3)
+        cycles = (mg.STATS["fas_cycles"] / 4,
+                  (mg.STATS["cycles"] - mg.STATS["fas_cycles"]) / 4)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / 3 * 1e3
+        log(f"[10 fr step items] {n}^3 {name}: {dev:.3f} ms by CUDA events, "
+            f"{host:.3f} ms by the host clock; {cycles[0]:.2f} FAS and "
+            f"{cycles[1]:.2f} Poisson V-cycles a call")
 
 
 def _per_solve(stats):
@@ -1250,6 +1405,134 @@ def phase_fr_n2(torch, np, tmp):
     _check_outputs(torch, np, base, n, "tsc", "11 fr n2")
 
 
+def _capture_run(torch, tmp, tag, overrides, names):
+    """:func:`_drive` with what the run logs (``run`` sends it to the
+    standard error stream) returned as lines too."""
+    import contextlib
+    import io
+    import logging
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stderr(buf):
+            out = _drive(torch, tmp, tag, overrides, names)
+    finally:  # the run's handler holds the buffer: back to the real stream
+        logging.basicConfig(level=logging.ERROR, format="%(message)s",
+                            force=True)
+    return out, buf.getvalue().splitlines()
+
+
+def phase_extras(torch, np, tmp):
+    """The run extras on the card: run_paired, the verbose = 2 residual
+    log and component breakdown with the profiler hook, and Morton
+    reordering of the scatter engine."""
+    import pysco_tpu_torch
+    from pysco_tpu_torch.cosmo import write_power_spectrum_table
+
+    def pks(base, sub="power"):
+        d = os.path.join(base, sub)
+        return {f: np.loadtxt(os.path.join(d, f)) for f in sorted(
+            os.listdir(d)) if f.startswith("pk_")}
+
+    # run_paired at the configuration of tests/test_e2e.py::test_run_paired
+    pk_file = os.path.join(tmp, "pk_extras.dat")
+    write_power_spectrum_table(pk_file)
+    small = dict(GOLDEN_PARAM, ncoarse=4, seed=7, initial_conditions="1LPT",
+                 z_out="[44]", power_spectrum_file=pk_file)
+    del small["particle_engine"], small["lazy_sort"]
+    del small["pm_precision_widened"], small["fixed_ICS"], small["paired_ICS"]
+    base = os.path.join(tmp, "paired")
+    pysco_tpu_torch.run_paired(dict(small, base=base), device="cuda")
+    avg, a, b = pks(base), pks(base, "pair_A/power"), pks(base, "pair_B/power")
+    check(avg and avg.keys() == a.keys() == b.keys(),
+          f"run_paired P(k) files: {sorted(avg)} {sorted(a)} {sorted(b)}")
+    for name, m in avg.items():
+        check(np.array_equal(m[:, 0], a[name][:, 0])
+              and np.allclose(m[:, 1], 0.5 * (a[name][:, 1] + b[name][:, 1]),
+                              rtol=1e-12, atol=0)
+              and np.array_equal(m[:, 2], a[name][:, 2] + b[name][:, 2]),
+              f"run_paired {name}: not the mean P(k) and the summed modes")
+        check(not np.array_equal(a[name][:, 1], b[name][:, 1]),
+              f"run_paired {name}: the two phases are one")
+    for tag in ("pair_A", "pair_B"):
+        snaps = os.listdir(os.path.join(base, tag, "output_00001"))
+        check(any(f.endswith(".npz") for f in snaps),
+              f"run_paired {tag}: no snapshot")
+    log(f"[12 extras] run_paired: {len(avg)} pair-averaged P(k) file(s), the "
+        "mean of pair_A and pair_B with summed mode counts")
+
+    # verbose = 2 with profile_dir against the same run without the hooks
+    n = 128
+    over = {"boxlen": 250.0, "ncoarse": 7, "npart": n ** 3, "z_out": "[30]",
+            "mass_scheme": "TSC", "linear_newton_solver": "multigrid",
+            "multigrid_cycle": "V"}
+    recs0, launches0, stats0, base0 = _drive(torch, tmp, "12 plain", over,
+                                             POISSON_KERNELS)
+    trace_dir = os.path.join(tmp, "trace")
+    (recs, launches, stats, base1), lines = _capture_run(
+        torch, tmp, "12 hooks", dict(over, verbose=2, profile_dir=trace_dir),
+        POISSON_KERNELS)
+    cycles = [ln for ln in lines if ln.startswith("multigrid: cycle ")]
+    check(len(cycles) == stats["cycles"] > 0,
+          f"{len(cycles)} residual lines for {stats['cycles']} cycles")
+    broke = [ln for ln in lines if "component timings" in ln]
+    check(len(broke) == 1, f"{len(broke)} component-timing lines")
+    times = json.loads(broke[0].split("timings: ")[1].replace("'", '"'))
+    check(sorted(times) == ["deposit_ms", "gather_ms",
+                            "solve_plus_gradient_ms", "tile_sort_ms"]
+          and all(v > 0 for v in times.values()),
+          f"component timings {times}")
+    check(stats == stats0 and launches == launches0
+          and [r.launches for r in recs] == [r.launches for r in recs0],
+          "the verbose = 2 and profiler hooks changed the launch counts: "
+          f"{launches} != {launches0}, {stats} != {stats0}")
+    for name, p0 in pks(base0).items():
+        check(np.array_equal(p0, pks(base1)[name]),
+              f"the hooks changed {name}")
+    files = os.listdir(trace_dir)
+    check(len(files) == 1, f"trace files {files}")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        trace = f.read()
+    for kernel in ("deposit_tiles", "gather_march", "half_sweep_kernel",
+                   "norm2_march", "restrict3_kernel",
+                   "add_prolongation_march"):
+        check(kernel in trace, f"the trace names no {kernel} kernel")
+    log(f"[12 extras] verbose = 2: {len(cycles)} residual lines = "
+        f"{stats['cycles']} cycles, first: {cycles[0]!r}; {broke[0]}")
+    log(f"[12 extras] profile_dir: {files[0]} ({len(trace) / 2 ** 20:.1f} "
+        f"MiB) names the port's kernels; step 2 took "
+        f"{1e3 * recs[1].seconds:.1f} ms traced, "
+        f"{1e3 * recs0[1].seconds:.1f} ms untraced; launch counts and P(k) "
+        "as without the hooks")
+
+    # the scatter engine reordered by Morton key every 2 steps, twice,
+    # against a run that never reorders
+    runs = {}
+    for tag, n_reorder in (("a", 2), ("b", 2), ("plain", 10 ** 6)):
+        base = os.path.join(tmp, f"reorder_{tag}")
+        recs = pysco_tpu_torch.run(
+            dict(small, base=base, particle_engine="scatter", z_out="[35]",
+                 n_reorder=n_reorder), device="cuda")
+        runs[tag] = pks(base)
+    check(len(recs) >= 4, f"only {len(recs)} scatter-engine steps")
+    worst = same = 0.0
+    for name, p in runs["a"].items():
+        q, r = runs["plain"][name], runs["b"][name]
+        check(np.array_equal(p[:, 2], q[:, 2]), f"reorder {name}: modes")
+        sel = q[:, 2] >= 8
+        worst = max(worst, float((np.abs(p[sel, 1] - q[sel, 1])
+                                  / q[sel, 1]).max()))
+        same = max(same, float((np.abs(p[sel, 1] - r[sel, 1])
+                                / r[sel, 1]).max()))
+    check(worst < 1e-4, f"reordered vs unreordered P(k): {worst:.2e}")
+    # index_add_ on the card adds with atomics, in an order that changes
+    # from run to run: two runs agree to float32 rounding, not bitwise
+    check(same < 1e-5, f"two reordered runs: {same:.2e}")
+    log(f"[12 extras] scatter engine, n_reorder = 2, {len(recs)} steps: P(k) "
+        f"vs the unreordered run max rel {worst:.2e} (bound 1e-4); two "
+        f"reordered runs max rel {same:.2e} (index_add_ atomics; bound 1e-5)")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     check(os.path.isdir(os.path.join(REPO, "pysco_tpu_torch")),
@@ -1281,6 +1564,7 @@ def main() -> int:
                      "9 fr e2e")
         launches = phase_fr_main_path(torch, np, tmp)
         phase_fr_n2(torch, np, tmp)
+        phase_extras(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")

@@ -14,7 +14,7 @@ device grid and particle array is float32. The package never imports
 JAX.
 """
 
-from .main import run  # noqa: F401
+from .main import run, run_paired  # noqa: F401
 from .utils.config import read_param_file  # noqa: F401
 
 __version__ = "0.1.0"

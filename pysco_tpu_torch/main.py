@@ -13,6 +13,8 @@ the lazy re-binning level from the accumulated drift bound.
 from __future__ import annotations
 
 import ast
+import contextlib
+import glob
 import logging
 import os
 from time import perf_counter
@@ -24,8 +26,11 @@ import torch
 from . import cosmo, ic, ic_device
 from . import integrate as integration
 from . import solver as solver_mod
+from .models import multigrid
+from .ops import mesh as mesh_ops
 from .ops import stencil, tiled_pm
 from .utils import io as iostream
+from .utils import profiling
 from .utils.config import Params, extra_name, params_from_dict, with_defaults
 from .utils.units import set_units
 
@@ -35,7 +40,9 @@ class StepRecord(NamedTuple):
 
     nsteps: int
     drift: int  # lazy window level, 0 on a sorted step
-    seconds: float  # host wall time of the step, device synchronised
+    # host wall time of the step, device synchronised (step 2 with its
+    # trace's start and export when profile_dir is set)
+    seconds: float
     overflow: int  # particles outside their drift windows
     launches: dict  # tiled_pm.LAUNCHES and stencil.LAUNCHES after the step
     mean_additional: float  # mean of u after the step (the f(R) scalaron)
@@ -144,12 +151,9 @@ def run(param, device="cuda") -> list:
     Returns one :class:`StepRecord` per step of the loop.
 
     Differences from ``pysco_tpu.run``: only ``parallel_mode = single``;
-    a step's drift-bound violation count is checked *before* its power
-    spectrum is written, so an aborted step leaves no P(k) file (the JAX
-    loop writes first); scatter-engine runs are not Morton-reordered
-    every ``n_reorder`` steps (reordering only changes memory locality);
-    no verbose=2 component breakdown, no per-cycle multigrid residual
-    logging and no profiler hook.
+    and a step's drift-bound violation count is checked *before* its
+    power spectrum is written, so an aborted step leaves no P(k) file
+    (the JAX loop writes first).
     """
     device = _resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -157,7 +161,11 @@ def run(param, device="cuda") -> list:
     if isinstance(param, Dict) and not isinstance(param, Params):
         param = params_from_dict(param)
     param = with_defaults(param)
-    _setup_logging(int(param["verbose"]))
+    verbose = int(param["verbose"])
+    _setup_logging(verbose)
+    # full timings at verbose = 2: per-cycle multigrid residual lines and
+    # per-step wall-clock at INFO; an earlier run's setting does not stay
+    multigrid.set_residual_logging(verbose >= 2)
     param["write_snapshot"] = False
     param["extra"] = extra_name(param)
 
@@ -222,6 +230,24 @@ def run(param, device="cuda") -> list:
     if save_pk_first:
         _write_pk(pk, param)
 
+    if (verbose >= 2 and cfg.particle_engine == "pallas"
+            and cfg.npart <= 256 ** 3):
+        # one-time per-component breakdown of a force evaluation, each
+        # stage timed alone. It holds a second sorted state and force
+        # mesh, so it can exhaust the card's memory at the largest sizes:
+        # skip it in that case.
+        try:
+            logging.info(
+                "force-evaluation component timings: %s",
+                profiling.component_breakdown(cfg, position, velocity, dyn),
+            )
+        except torch.cuda.OutOfMemoryError as e:
+            logging.warning(
+                "component timing breakdown skipped (%s: needs a state "
+                "clone; insufficient device memory at this size)",
+                type(e).__name__,
+            )
+
     aexp_out = np.sort(1.0 / (np.array(z_out, dtype=np.float64) + 1))
     t_out = np.array([float(tables[1](np.log(a))) for a in aexp_out])
     logging.info("aexp_out=%s", aexp_out)
@@ -247,31 +273,40 @@ def run(param, device="cuda") -> list:
         save_pk = pk_mode == "yes" or (
             pk_mode == "z_out" and param["write_snapshot"]
         )
+        # profile_dir: a device trace of one steady-state step (step 1
+        # still pays one-time set-up, the first sort's geometry among it)
+        profile_dir = param.get("profile_dir", "")
+        tracing = bool(profile_dir) and param["nsteps"] == 2
         t_step0 = perf_counter()
-        presorted = 0
-        if lazy:
-            step_bound = (
-                max_abs_vel * dt + 0.5 * max_abs_acc * dt * dt
-            ) * cfg.ncells_1d
-            presorted = _drift_level(cum_drift + step_bound, cfg.lazy_drift)
-            (position, velocity, acceleration, potential, u, tstarts, pk,
-             diag) = integration.step_lazy_impl(
-                cfg, integrator, presorted, save_pk, position, velocity,
-                acceleration, potential, u, tstarts, dyn, dt,
-            )
-            if presorted:
-                cum_drift += step_bound
-                logging.info("lazy re-binning: sort skipped "
-                             "(drift bound %.3f cells, window %d)",
-                             cum_drift, presorted)
+        with (profiling.trace(str(profile_dir), device) if tracing
+              else contextlib.nullcontext()):
+            presorted = 0
+            if lazy:
+                step_bound = (
+                    max_abs_vel * dt + 0.5 * max_abs_acc * dt * dt
+                ) * cfg.ncells_1d
+                presorted = _drift_level(cum_drift + step_bound,
+                                         cfg.lazy_drift)
+                (position, velocity, acceleration, potential, u, tstarts, pk,
+                 diag) = integration.step_lazy_impl(
+                    cfg, integrator, presorted, save_pk, position, velocity,
+                    acceleration, potential, u, tstarts, dyn, dt,
+                )
+                if presorted:
+                    cum_drift += step_bound
+                    logging.info("lazy re-binning: sort skipped "
+                                 "(drift bound %.3f cells, window %d)",
+                                 cum_drift, presorted)
+                else:
+                    cum_drift = 0.0  # this step sorted after its drift
             else:
-                cum_drift = 0.0  # this step sorted after its drift
-        else:
-            (position, velocity, acceleration, potential, u, pk,
-             diag) = integration.step_impl(
-                cfg, integrator, False, save_pk, position, velocity,
-                acceleration, potential, u, dyn, dt,
-            )
+                (position, velocity, acceleration, potential, u, pk,
+                 diag) = integration.step_impl(
+                    cfg, integrator, False, save_pk, position, velocity,
+                    acceleration, potential, u, dyn, dt,
+                )
+            if tracing and device.type == "cuda":
+                torch.cuda.synchronize(device)  # the step's end in the window
         # these fetches synchronise the device: a true per-step wall time
         max_abs_acc = float(diag.max_abs_acc)
         max_abs_vel = float(diag.max_abs_vel)
@@ -293,6 +328,12 @@ def run(param, device="cuda") -> list:
         if cfg.theory == "fr" and param["nsteps"] % 10 == 0:
             logging.info("mean(u_scalaron)=%s (should stay close to 1)",
                          mean_u)
+        if (param["nsteps"] % int(param["n_reorder"]) == 0
+                and cfg.particle_engine != "pallas"):
+            # the tiled engine re-sorts at every force evaluation already
+            logging.info("Reordering particles")
+            position, velocity, acceleration = mesh_ops.reorder_particles(
+                position, velocity, acceleration)
         if param["write_snapshot"]:
             pos_np, vel_np = solver_mod.particles_to_rows(cfg, position,
                                                           velocity)
@@ -303,6 +344,41 @@ def run(param, device="cuda") -> list:
             param["nsteps"], param["aexp"], 1.0 / param["aexp"] - 1,
         )
     return records
+
+
+def run_paired(param, device="cuda") -> None:
+    """Paired-and-fixed convenience runner (``pysco_tpu.run_paired``): run
+    both phases of a fixed-amplitude pair (phase shift pi, Angulo &
+    Pontzen 2016) on ``device`` into ``base/pair_A`` and ``base/pair_B``,
+    and write each matching P(k) output phase-averaged into
+    ``base/power``: the mean P(k), the summed mode counts. Raises without
+    a card unless ``device="cpu"``, as :func:`run` does."""
+    device = _resolve_device(device)
+    if isinstance(param, Dict) and not isinstance(param, Params):
+        param = params_from_dict(param)
+    param = with_defaults(param)
+    base = str(param["base"]).rstrip("/")
+    for tag, paired in (("pair_A", False), ("pair_B", True)):
+        sub = dict(param)
+        sub["base"] = f"{base}/{tag}"
+        sub["fixed_ICS"] = True
+        sub["paired_ICS"] = paired
+        run(sub, device=device)
+
+    os.makedirs(f"{base}/power", exist_ok=True)
+    for pk_a in sorted(glob.glob(f"{base}/pair_A/power/pk_*.dat")):
+        pk_b = pk_a.replace("/pair_A/", "/pair_B/")
+        if not os.path.exists(pk_b):
+            continue
+        a = np.loadtxt(pk_a)
+        b = np.loadtxt(pk_b)
+        avg = a.copy()
+        avg[:, 1] = 0.5 * (a[:, 1] + b[:, 1])
+        avg[:, 2] = a[:, 2] + b[:, 2]
+        out = f"{base}/power/{os.path.basename(pk_a)}"
+        header = "k [h/Mpc]  P(k) [Mpc/h]^3 (pair-averaged)  Nmodes (sum)"
+        np.savetxt(out, avg, header=header)
+        logging.warning("Write pair-averaged P(k) in %s", out)
 
 
 def main() -> None:

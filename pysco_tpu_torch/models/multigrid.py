@@ -18,6 +18,7 @@ quartic (n = 2) equations.
 
 from __future__ import annotations
 
+import logging
 from dataclasses import dataclass
 from typing import Callable, Optional
 
@@ -36,9 +37,22 @@ MAX_CYCLES = 30  # safety cap, as in the JAX package; the reference has none
 STATS = {"solves": 0, "cycles": 0, "fas_solves": 0, "fas_cycles": 0}
 
 
+# When True, _converge logs a "residual error vs tolerance" line per cycle
+# at INFO (the JAX package's LOG_RESIDUALS; run() sets it at verbose >= 2).
+# The loop holds both values on the host already, so the line costs no
+# extra synchronisation.
+LOG_RESIDUALS = False
+
+
 def reset_stats() -> None:
     for k in STATS:
         STATS[k] = 0
+
+
+def set_residual_logging(enabled: bool) -> None:
+    """Toggle the per-cycle residual log line."""
+    global LOG_RESIDUALS
+    LOG_RESIDUALS = bool(enabled)
 
 
 @dataclass(frozen=True)
@@ -173,11 +187,14 @@ def _converge(x, b, cycle_fn, error_fn, tolerance, fas: bool = False):
     prev = np.float32(1e30)
     STATS["solves"] += 1
     STATS["fas_solves"] += int(fas)
-    for _ in range(MAX_CYCLES):
+    for it in range(1, MAX_CYCLES + 1):
         x = cycle_fn(x, b)
         STATS["cycles"] += 1
         STATS["fas_cycles"] += int(fas)
         err = np.float32(float(error_fn(x, b)))
+        if LOG_RESIDUALS:
+            logging.info("multigrid: cycle %d residual error %.3e "
+                         "(tolerance %.3e)", it, err, tol)
         if err <= tol or err * np.float32(2) > prev:
             break
         prev = err

@@ -12,6 +12,8 @@ main-path part of ``pysco_tpu/ops/mesh.py``).
   of ``ops/stencil.py`` on the card.
 - ``periodic_wrap``: wrap into [0, 1) while keeping the tiled engine's
   sentinel columns (position >= 1.5).
+- ``morton_keys`` / ``reorder_particles``: the scatter engine's
+  ``n_reorder`` sort of (npart, 3) rows into Morton order.
 """
 
 from __future__ import annotations
@@ -232,3 +234,35 @@ def periodic_wrap(position: torch.Tensor) -> torch.Tensor:
     x = torch.where((x < 0) & (x > _WRAP_EPS), torch.zeros_like(x), x)
     x = torch.where(x < 0, x + 1.0, x)
     return torch.where((x >= 1) & (x < 1.5), x - 1.0, x)
+
+
+def _spread_bits_21(v: torch.Tensor) -> torch.Tensor:
+    """Spread the low 21 bits of v so they occupy every third bit."""
+    x = v.to(I64) & 0x1FFFFF
+    x = (x | (x << 32)) & 0x1F00000000FFFF
+    x = (x | (x << 16)) & 0x1F0000FF0000FF
+    x = (x | (x << 8)) & 0x100F00F00F00F00F
+    x = (x | (x << 4)) & 0x10C30C30C30C30C3
+    x = (x | (x << 2)) & 0x1249249249249249
+    return x
+
+
+def morton_keys(position: torch.Tensor) -> torch.Tensor:
+    """Morton keys of (npart, 3) positions at 21 bits per axis, x the
+    most significant. The JAX package holds them in uint64; they have 63
+    bits, so int64 holds the same integers and sorts in the same order.
+    The cell is float32(position) * float32(2^21), the product formed in
+    float32, truncated and clipped to [0, 2^21 - 1]."""
+    scaled = torch.clamp((position.to(F32) * float(2 ** 21)).to(I64), 0,
+                         2 ** 21 - 1)
+    return ((_spread_bits_21(scaled[:, 0]) << 2)
+            | (_spread_bits_21(scaled[:, 1]) << 1)
+            | _spread_bits_21(scaled[:, 2]))
+
+
+def reorder_particles(position: torch.Tensor, *arrays):
+    """Sort the particles by Morton key, for the locality of the scatter
+    engine's deposit; ties keep their order (a stable sort, as
+    ``jnp.argsort``). Returns (position, *arrays) in the new order."""
+    order = torch.argsort(morton_keys(position), stable=True)
+    return (position[order], *(a[order] for a in arrays))

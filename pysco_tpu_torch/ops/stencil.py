@@ -215,11 +215,15 @@ def _kernels():
                                               I, P]
     lib.pysco_norm2_blocks.argtypes = [I]
     lib.pysco_residual_norm2.argtypes = [I, P, P, P, I, F, F, F, P, P, P]
+    lib.pysco_norm2_variant_blocks.argtypes = [I, I]
+    lib.pysco_residual_norm2_variant.argtypes = [I, I, I, P, P, P, I, F, F, F,
+                                                 P, P, P]
     lib.pysco_restrict3.argtypes = [I, P, P, P, I, F, F, F, P, P, P, P]
     lib.pysco_add_prolongation.argtypes = [P, P, P, I, P]
     for fn in (lib.pysco_half_sweep, lib.pysco_scalaron_half_sweep,
-               lib.pysco_norm2_blocks,
-               lib.pysco_residual_norm2, lib.pysco_restrict3,
+               lib.pysco_norm2_blocks, lib.pysco_residual_norm2,
+               lib.pysco_norm2_variant_blocks,
+               lib.pysco_residual_norm2_variant, lib.pysco_restrict3,
                lib.pysco_add_prolongation):
         fn.restype = I
     return lib
@@ -346,7 +350,10 @@ def _kind_args(kind: str, x, b, q):
 def residual_norm2(kind: str, x, b=None, rhs=None, q=None) -> torch.Tensor:
     """Sum of squares of the ``kind`` residual over the (n, n, n) lattice
     (rhs - op with ``rhs``), a 0-dim float32 tensor on x's device. On the
-    card the sum has one fixed order: two calls are bitwise equal."""
+    card the kernel marches along x with float4 accesses when n is a
+    multiple of 4, at least 32, and every array 16-byte aligned, and takes
+    one thread a cell otherwise; either way the sum has one fixed order,
+    set by n alone: two calls are bitwise equal."""
     if not _on_cuda("residual_norm2", x, b, rhs):
         return residual_norm2_plain(kind, x, b, rhs, q)
     code, needs_b, n, n2, h2, qf = _kind_args(kind, x, b, q)

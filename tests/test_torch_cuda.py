@@ -321,6 +321,65 @@ def test_residual_kernels_match_twins(cuda, kind, q):
             assert torch.equal(only, outs[0])
 
 
+@pytest.mark.parametrize("kind,q", KINDS)
+@pytest.mark.parametrize("n", [4, 6, 8, 24, 36, 128, 256])
+def test_residual_norm2_matches_twin(cuda, n, kind, q):
+    """The plane march (n a multiple of 4 from 32 up; ragged tiles at 36)
+    and the per-cell kernel (the coarse levels, n = 6), with and without
+    a rhs: within 5e-6 of the twin (float32 squares added in double
+    against torch's float32 tree), two calls bitwise equal."""
+    x, b, rhs = _grids(n, 7, cuda)
+    b = None if kind == "laplacian" else b
+    for r in (None, rhs):
+        before = stencil.LAUNCHES["residual_norm2"]
+        got = stencil.residual_norm2(kind, x, b, r, q)
+        assert stencil.LAUNCHES["residual_norm2"] == before + 1
+        want = stencil.residual_norm2_plain(kind, x, b, r, q)
+        assert got.shape == () and got.dtype == torch.float32
+        assert abs(float(got) - float(want)) <= 5e-6 * float(want)
+        assert torch.equal(got, stencil.residual_norm2(kind, x, b, r, q))
+
+
+def test_residual_norm2_misaligned_matches_march(cuda):
+    """An x that is not 16-byte aligned takes the per-cell kernel over the
+    march's number of blocks: the same sum to a rounding of the double
+    partials' order."""
+    n = 32
+    x, b, _ = _grids(n, 8, cuda)
+    flat = torch.empty(n ** 3 + 1, device=cuda)
+    flat[1:] = x.reshape(-1)
+    x_off = flat[1:].view(n, n, n)
+    assert x_off.data_ptr() % 16 == 4 and x_off.is_contiguous()
+    got = stencil.residual_norm2("linear", x_off, b)
+    want = stencil.residual_norm2("linear", x, b)
+    assert abs(float(got) - float(want)) <= 1e-6 * float(want)
+    assert torch.equal(got, stencil.residual_norm2("linear", x_off, b))
+
+
+def test_residual_norm2_scratch_matches_kernel(cuda, monkeypatch):
+    """The wrapper allocates as many double partials as the library says
+    the kernel writes for that n, whatever the kind."""
+    lib = stencil._kernels()
+    assert lib.pysco_norm2_blocks(4) == 1
+    assert lib.pysco_norm2_blocks(24) == 54  # one thread a cell, 256 a block
+    assert lib.pysco_norm2_blocks(256) == 2 * 32 * 16
+    assert lib.pysco_norm2_blocks(512) == 4 * 64 * 4
+    real = torch.empty
+    sizes = []
+
+    def recording(*size, **kw):
+        if kw.get("dtype") == torch.float64:
+            sizes.append(size)
+        return real(*size, **kw)
+
+    monkeypatch.setattr(stencil.torch, "empty", recording)
+    for n in (4, 6, 24, 36, 132, 256):
+        x, b, rhs = _grids(n, 9, cuda)
+        sizes.clear()
+        stencil.residual_norm2("cubic", x, b, rhs, -0.27)
+        assert sizes == [(lib.pysco_norm2_blocks(n),)]
+
+
 @pytest.mark.parametrize("n", [4, 6, 8, 16, 24, 32, 256])
 def test_add_prolongation_matches_twin(cuda, n):
     """The plane march (n a multiple of 4, ragged tiles below 128 and at

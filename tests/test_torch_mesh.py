@@ -66,3 +66,50 @@ def test_scatter_gather_matches(scheme):
                           scheme).numpy()
     assert got.shape == (2000, 3)
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _morton_positions():
+    """Seeded positions with the edge cases of the key: 0, the float32
+    values next to 1, 1 itself (clipped into the last cell), exact ties
+    and cells one key apart."""
+    rng = np.random.default_rng(21)
+    pos = rng.random((4000, 3), dtype=np.float32)
+    below_one = np.nextafter(np.float32(1), np.float32(0))
+    pos[0] = 0.0
+    pos[1] = below_one
+    pos[2] = [0.0, below_one, 0.5]
+    pos[3] = 1.0
+    pos[4] = np.float32(2.0 ** -21)
+    pos[5] = np.nextafter(np.float32(2.0 ** -21), np.float32(0))
+    pos[100:200] = pos[200:300]        # ties: a stable sort keeps their order
+    pos[300:400, 0] = pos[400:500, 0]  # equal in one axis only
+    return pos
+
+
+def test_morton_keys_match():
+    pos = _morton_positions()
+    want = np.array(jmesh.morton_keys(jnp.asarray(pos)))
+    got = mesh.morton_keys(torch.as_tensor(pos))
+    assert want.dtype == np.uint64 and got.dtype == torch.int64
+    # 63-bit keys: int64 holds the same integers, in the same order
+    assert int(want.max()) < 2 ** 63
+    np.testing.assert_array_equal(got.numpy().astype(np.uint64), want)
+    assert int(got[3]) == 2 ** 63 - 1 and int(got[0]) == 0
+
+
+def test_reorder_particles_matches():
+    pos = _morton_positions()
+    rng = np.random.default_rng(22)
+    vel = rng.standard_normal(pos.shape).astype(np.float32)
+    tag = np.arange(pos.shape[0], dtype=np.int32)
+    want = [np.array(a) for a in jmesh.reorder_particles(
+        jnp.asarray(pos), jnp.asarray(vel), jnp.asarray(tag))]
+    got = mesh.reorder_particles(torch.as_tensor(pos), torch.as_tensor(vel),
+                                 torch.as_tensor(tag))
+    assert len(got) == 3
+    # the same permutation, ties included (both sorts are stable)
+    np.testing.assert_array_equal(got[2].numpy(), want[2])
+    np.testing.assert_array_equal(got[0].numpy(), want[0])
+    np.testing.assert_array_equal(got[1].numpy(), want[1])
+    keys = mesh.morton_keys(got[0])
+    assert bool((keys[1:] >= keys[:-1]).all())

@@ -152,18 +152,20 @@ def test_e2e_rows_match_jax(tmp_path, name, overrides):
 
 def test_restart_across_packages(tmp_path):
     """A snapshot written by the JAX package restarts the port, which
-    then tracks its own uninterrupted run (scatter engine: the particle
-    order is kept, so particles compare row by row). The reverse
+    then tracks its own uninterrupted run (scatter engine with no Morton
+    reordering inside the horizon: the particle order is kept, so
+    particles compare row by row). The reverse
     direction is tests/test_torch_host.py::test_snapshots_interchange."""
     pj = _e2e_param(tmp_path, "a", linear_newton_solver="fft",
                     particle_engine="scatter", n_reorder=1000)
     pysco_tpu.run(pj)
     pt = _e2e_param(tmp_path, "a", linear_newton_solver="fft",
                     particle_engine="scatter", initial_conditions=1,
-                    z_out="[40]")
+                    z_out="[40]", n_reorder=1000)
     pysco_tpu_torch.run(pt, device="cpu")
     pt2 = _e2e_param(tmp_path, "b", linear_newton_solver="fft",
-                     particle_engine="scatter", z_out="[44, 40]")
+                     particle_engine="scatter", z_out="[44, 40]",
+                     n_reorder=1000)
     pysco_tpu_torch.run(pt2, device="cpu")
     for i in (1, 2):
         a = glob.glob(f"{tmp_path}/a/output_0000{i}/particles_*.h5")
