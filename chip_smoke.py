@@ -29,7 +29,14 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    against another: the plane march with 8 and 16 rows a tile, without
    its second launch, and one thread a cell), the prolongation beside
    the trilinear ``interpolate`` yardstick; the deposit's device time
-   split between its kernel and the torch zeroing and fold;
+   split between its kernel and the torch zeroing and fold; the slab call
+   forms of the deposit and the gather (``deposit_slab``,
+   ``gather_vec_slab``) at ``plane0 != 0`` on 128^3, 256^3 and 512^3
+   (z-blocked), CIC and TSC, drift 0-2, a quarter of the grid and the
+   thinnest slab allowed, with bases on the edges of their windows, two
+   deposits bitwise equal and the gather bitwise its twin; four slab
+   deposits and ``add_spill`` against the single-device deposit; both
+   forms' times at 256^3 CIC for a whole grid and a quarter, with bounds;
 4. golden: the full-horizon configuration of
    ``tests/test_full_run_fidelity.py`` through ``pysco_tpu_torch.run``
    must match ``tests/golden_pk_32.json`` within 1e-4; two P(k) of one
@@ -71,7 +78,16 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    without them (one residual line a V-cycle, one component-timing line
    with four positive times, a trace file that names the port's kernels,
    launch counts and P(k) unchanged); the scatter engine reordered by
-   Morton key every 2 steps, twice, against a run that never reorders.
+   Morton key every 2 steps, twice, against a run that never reorders;
+13. the multi-device modes on the one card: phase 5's configuration with
+   ``parallel_mode = slab`` on the mesh ``[cuda:0] * 4`` (four shards
+   taking turns), twice: 4 ``deposit_slab`` and 4 ``gather_slab``
+   launches a step, P(k) within 1e-5 of phase 5's single-device run and
+   bitwise equal between the two runs, the median step beside phase 5's;
+   the same configuration with ``parallel_mode = replicated`` on
+   ``[cuda:0] * 2`` for a few steps; the golden configuration in both
+   modes within 1e-4; a 128^3 slab run whose ``slab_slack`` is so low
+   that the capacity re-balancing fires (read in its log).
 
 The last two lines of standard output are the kernels' JSON record (with
 each kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -107,10 +123,18 @@ KERNELS = {
                   "pysco_tpu/ops/pallas_stencil.py:607"),
     "add_prolongation": ("pysco_tpu_torch/csrc/prolongation.cu",
                          "pysco_tpu/ops/pallas_stencil.py:690"),
+    # the slab call forms of the first two (their pallas_call sites)
+    "deposit_slab": ("pysco_tpu_torch/csrc/deposit.cu",
+                     "pysco_tpu/ops/pallas_pm.py:764"),
+    "gather_slab": ("pysco_tpu_torch/csrc/gather.cu",
+                    "pysco_tpu/ops/pallas_pm.py:1041"),
 }
-# the kernels of the Newtonian and QUMOND multigrid paths (all but the
-# scalaron sweep)
-POISSON_KERNELS = tuple(k for k in KERNELS if k != "scalaron_half_sweep")
+SLAB_KERNELS = ("deposit_slab", "gather_slab")
+# the kernels of the single-device f(R) path, and of the Newtonian and
+# QUMOND multigrid paths (all but the scalaron sweep)
+SINGLE_KERNELS = tuple(k for k in KERNELS if k not in SLAB_KERNELS)
+POISSON_KERNELS = tuple(k for k in SINGLE_KERNELS
+                        if k != "scalaron_half_sweep")
 RESIDUAL_KINDS = (("linear", None), ("laplacian", None),
                   ("reformulated", None), ("cubic", -0.27),
                   ("quartic", -0.27))
@@ -194,12 +218,14 @@ def _state(torch, tp, n, m, scheme, drift, clustered, gen):
     return ps, ts
 
 
-def _edge_state(torch, tp, ps, ts, m, scheme, drift, gen):
+def _edge_state(torch, tp, ps, ts, m, scheme, drift, gen, plane0=0,
+                n_planes=None):
     """Every real column of a fresh sort moved so that its base cell sits on
     an edge of its tile's window: x at -drift, 0 or +drift planes; y at
     -drift, the live window's last row (7 + drift) or the envelope's
-    (wy_pad - w - drift); z likewise when z-blocked."""
-    g = tp._geometry(m, scheme, drift)
+    (wy_pad - w - drift); z likewise when z-blocked. ``plane0`` and
+    ``n_planes``: the tiles are a slab's."""
+    g = tp._geometry(m, scheme, drift, None, n_planes)
     n_up = ps.shape[1]
     tile = tp._tile_of_columns(ts, n_up).long()
     real = (ps[0] < tp.SENTINEL_MIN) & (tile < g.ntiles)
@@ -209,7 +235,8 @@ def _edge_state(torch, tp, ps, ts, m, scheme, drift, gen):
                           device="cuda")
         return torch.tensor(options, device="cuda")[i]
 
-    plane, yb = tile // (g.nby * g.nbz), (tile // g.nbz) % g.nby
+    plane = tile // (g.nby * g.nbz) + plane0
+    yb = (tile // g.nbz) % g.nby
     by = yb * tp.YB + pick([-drift, 7 + drift, g.wy_pad - g.w - drift])
     if g.nbz > 1:
         bz = (tile % g.nbz) * g.zbs + pick(
@@ -474,7 +501,191 @@ def phase_kernels(torch):
     _gather_staging(torch, tp, field, gen)
     del field, ps, ts
     _gather_512(torch, tp, gen)
+    s_err, s_times, s_meta = _slab_kernels(torch, tp, gen)
+    err.update(s_err)
+    times[("cic", 0)].update(s_times)
+    meta.update(s_meta)
     return err, times[("cic", 0)], meta
+
+
+def _slab_state(torch, tp, n, m, scheme, drift, plane0, n_planes, gen,
+                edge=False, clustered=True):
+    """The tile-sorted columns of the slab [plane0, plane0 + n_planes) of a
+    box of n particles (the strangers sorted past the end, as
+    after a migration), then moved without a re-sort: up to drift - 0.05
+    cells per axis, or (``edge``) onto the edges of their windows."""
+    from pysco_tpu_torch.ops.mesh import periodic_wrap
+
+    pos, vel = _particles(torch, n, m, clustered, gen)
+    pc, vc = tp.to_columns(pos, vel, n)
+    del pos, vel
+    ps, _, ts = tp.sort_particles(pc, vc, m, scheme, None, plane0, n_planes)
+    del pc, vc
+    # the slab's own columns and a sentinel tail, as a shard holds them
+    keep = tp.padded_cols(int(ts[-1]) + 1)
+    ps = ps[:, :keep].clone()
+    ps[:3, int(ts[-1]):] = tp.SENTINEL
+    if edge:
+        ps = _edge_state(torch, tp, ps, ts, m, scheme, drift, gen, plane0,
+                         n_planes)
+    elif drift:
+        delta = (drift - 0.05) / m * (
+            2 * torch.rand((3, keep), generator=gen, device="cuda") - 1)
+        real = ps[0] < tp.SENTINEL_MIN
+        ps[:3] = torch.where(real, periodic_wrap(ps[:3] + delta), ps[:3])
+    check(int(tp.drift_violations(ps, ts, m, scheme, drift, None, plane0,
+                                  n_planes)) == 0,
+          "slab test state breaks its drift bound")
+    return ps, ts
+
+
+def _slab_check(torch, tp, ps, ts, m, scheme, drift, plane0, n_planes, gen,
+                tag, mass=True):
+    """The slab forms against their twins: two deposits bitwise equal and
+    within 1e-5 x max of the twin, the gather bitwise its twin. Returns
+    the deposit's and the gather's |kernel - twin|."""
+    args = (ps, ts, m, scheme, drift, None, plane0, n_planes)
+    gp = tp.deposit_slab(*args)
+    check(torch.equal(gp, tp.deposit_slab(*args)),
+          f"deposit_slab not bitwise reproducible ({tag})")
+    twin = tp.deposit_slab_plain(*args)
+    d_err, scale = float((gp - twin).abs().max()), float(twin.abs().max())
+    check(d_err <= 1e-5 * scale,
+          f"deposit_slab vs twin {d_err:.3e} > 1e-5 x {scale:.3e} ({tag})")
+    if mass:
+        total, want = float(gp.double().sum()), int(ts[-1])
+        check(abs(total - want) <= 1e-6 * want,
+              f"deposit_slab mass {total} != {want} ({tag})")
+    field = torch.randn((3, gp.shape[0], m, m), generator=gen, device="cuda")
+    got = tp.gather_vec_slab(field, ps, ts, scheme, drift, None, plane0)
+    twin = tp.gather_vec_slab_plain(field, ps, ts, scheme, drift, plane0)
+    g_err = float((got - twin).abs().max())
+    check(g_err == 0.0 and torch.equal(got, twin),
+          f"gather_vec_slab not bitwise its twin: {g_err:.3e} ({tag})")
+    return d_err, g_err
+
+
+def _slab_kernels(torch, tp, gen):
+    """The slab call forms on the card (see the module's phase 3)."""
+    from pysco_tpu_torch.parallel import slab
+
+    err = g_err = 0.0
+    for m, n in ((128, 128 ** 3), (256, 128 ** 3), (512, 128 ** 3)):
+        plane0 = m // 2
+        for scheme in ("cic", "tsc"):
+            w = tp._WIDTH[scheme]
+            worst = 0.0
+            for drift in (0, 1, 2):
+                for n_planes in (m // 4, w - 1 + drift):
+                    for edge in (False, True):
+                        if edge and drift == 1:
+                            continue
+                        ps, ts = _slab_state(torch, tp, n, m, scheme, drift,
+                                             plane0, n_planes, gen, edge)
+                        d, g = _slab_check(
+                            torch, tp, ps, ts, m, scheme, drift, plane0,
+                            n_planes, gen, f"m={m} {scheme} drift={drift} "
+                            f"planes {plane0}+{n_planes} edge={edge}",
+                            mass=not edge)
+                        worst, g_err = max(worst, d), max(g_err, g)
+            err = max(err, worst)
+            log(f"[3 slab] m={m} {scheme}: planes {plane0}+{m // 4} and the "
+                f"thinnest (w - 1 + drift), drift 0-2, drifted and on the "
+                f"windows' edges: deposit_slab |k-twin| <= {worst:.2e}, two "
+                f"calls bitwise; gather_vec_slab |k-twin| <= {g_err:.1e} "
+                "(bitwise its twin)")
+    # D slab deposits and add_spill against the single-device deposit of
+    # the same (stale) state; the slab gathers of the halo-extended field
+    # against the single gather, column by column
+    m, n, d = 256, 256 ** 3, 4
+    planes = m // d
+    mesh = (torch.device("cuda", 0),) * d
+    for scheme, drift in (("cic", 0), ("tsc", 2)):
+        ps, ts = _state(torch, tp, n, m, scheme, drift, True, gen)
+        want = tp.deposit(ps, ts, m, scheme, drift)
+        field = torch.randn((3, m, m, m), generator=gen, device="cuda")
+        acc = tp.gather_vec_cl(field, ps, ts, scheme, drift)
+        nt = tp.n_tiles(m, None, planes)
+        ext = slab.halo_lr(list(torch.chunk(field, d, dim=1)), drift,
+                           tp._WIDTH[scheme] - 1 + drift, mesh, axis=1)
+        gps = []
+        for r in range(d):
+            lo, hi = int(ts[r * nt]), int(ts[(r + 1) * nt])
+            cols = torch.full((4, tp.padded_cols(hi - lo + 1)), tp.SENTINEL,
+                              device="cuda")
+            cols[3] = 0.0
+            cols[:, :hi - lo] = ps[:, lo:hi]
+            rts = ts[r * nt:(r + 1) * nt + 1] - lo
+            gps.append(tp.deposit_slab(cols, rts, m, scheme, drift, None,
+                                       r * planes, planes))
+            got = tp.gather_vec_slab(ext[r].contiguous(), cols, rts, scheme,
+                                     drift, None, r * planes)
+            check(torch.equal(got[:, :hi - lo], acc[:, lo:hi]),
+                  f"slab {r}'s gather is not the single gather's ({scheme})")
+        got = torch.cat(slab.add_spill(gps, planes, mesh, lead=drift))
+        d_err, scale = float((got - want).abs().max()), float(want.max())
+        check(d_err <= 1e-6 * scale, f"{d} slab deposits + add_spill vs the "
+              f"single deposit: {d_err:.3e} > 1e-6 x {scale:.3e}")
+        log(f"[3 slab] 256^3 {scheme} drift={drift}: {d} slab deposits + "
+            f"add_spill vs the single deposit {d_err:.2e} (max count "
+            f"{scale:.3e}); the {d} slab gathers bitwise the single gather")
+        del ps, ts, want, field, acc, ext, gps, got
+    # times at 256^3 CIC drift 0: the whole grid as one slab, and a quarter
+    # (the shapes of 1 and 4 shards); bytes: the columns' positions and the
+    # tile starts read, the padded slab written (deposit) or the extended
+    # field read and three rows written (gather)
+    scheme, times, meta = "cic", {}, {}
+    for n_planes, plane0 in ((m, 0), (planes, m // 2)):
+        ps, ts = _slab_state(torch, tp, n, m, scheme, 0, plane0, n_planes,
+                             gen, clustered=False)
+        cnt = int(ts[-1])
+        nx = n_planes + 1
+        field = torch.randn((3, nx, m, m), generator=gen, device="cuda")
+        t = {
+            "deposit_slab": time_ms(torch, lambda: tp.deposit_slab(
+                ps, ts, m, scheme, 0, None, plane0, n_planes)),
+            "deposit_slab_plain": time_ms(
+                torch, lambda: tp.deposit_slab_plain(
+                    ps, ts, m, scheme, 0, None, plane0, n_planes), 3),
+            "gather_slab": time_ms(torch, lambda: tp.gather_vec_slab(
+                field, ps, ts, scheme, 0, None, plane0)),
+            "gather_slab_plain": time_ms(
+                torch, lambda: tp.gather_vec_slab_plain(
+                    field, ps, ts, scheme, 0, plane0), 3),
+        }
+        pos_bytes = 12 * cnt + ts.numel() * 4
+        dep = bound(pos_bytes + 4 * nx * m * m, cnt * (15 + 8 * 3))
+        gat = bound(pos_bytes + field.numel() * 4 + 12 * cnt,
+                    cnt * (15 + 8 * 3 + 8 * 3 * 2))
+        log(f"[3 slab times] 256^3 CIC drift 0, planes {plane0}+{n_planes} "
+            f"({cnt} particles): deposit_slab {t['deposit_slab']:.3f} ms "
+            f"(twin {t['deposit_slab_plain']:.3f}, bound {dep[0]:.4f} "
+            f"{dep[1]}), gather_vec_slab {t['gather_slab']:.3f} ms (twin "
+            f"{t['gather_slab_plain']:.3f}, bound {gat[0]:.4f} {gat[1]})")
+        if n_planes == planes:  # the main path's shape: the record's
+            from pysco_tpu_torch.ops import mesh as mesh_ops
+
+            rows = ps[:3, :cnt].T.contiguous()
+            contribs = mesh_ops._contribs(rows, m, scheme)
+            idx = torch.cat([c[0] for c in contribs])
+            wts = torch.cat([c[1] for c in contribs])
+            del contribs, rows
+            mm = m * m  # the cells re-based onto the slab's nx planes
+            idx = ((idx // mm - plane0) % m) * mm + idx % mm
+            check(int(idx.max()) < nx * mm, "a slab particle off its slab")
+            lib = time_ms(torch, lambda: torch.zeros(
+                nx * mm, device="cuda").index_add_(0, idx, wts))
+            del idx, wts
+            g_lib = _grid_sample_yardstick(torch, tp, ps, ts, field, m,
+                                           plane0=plane0)
+            log(f"[3 slab times] one-call yardsticks on the quarter slab: "
+                f"index_add_ {lib:.3f} ms, grid_sample {g_lib:.3f} ms")
+            times = t
+            meta = {"deposit_slab": {"bound": dep, "library_ms": lib},
+                    "gather_slab": {"bound": gat, "library_ms": g_lib}}
+        del ps, ts, field
+    torch.cuda.empty_cache()
+    return {"deposit_slab": err, "gather_slab": g_err}, times, meta
 
 
 def _particle_meta(torch, tp, ps, ts, field, m, n, t):
@@ -511,7 +722,8 @@ def _particle_meta(torch, tp, ps, ts, field, m, n, t):
             "gather": {"bound": gat, "library_ms": g_lib}}
 
 
-def _grid_sample_yardstick(torch, tp, ps, ts, field, m, checked=True):
+def _grid_sample_yardstick(torch, tp, ps, ts, field, m, checked=True,
+                           plane0=None):
     """The gather's one-call yardstick: trilinear ``grid_sample``
     (align_corners=False) of the three-component field padded by one
     periodic cell a side, at the real columns' (z, y, x) positions
@@ -523,18 +735,30 @@ def _grid_sample_yardstick(torch, tp, ps, ts, field, m, checked=True):
     of the box): grid_sample unnormalises its coordinate in float32, about
     3e-5 of a cell at 256^3, which a white-noise field turns into errors
     above 1e-5 x max (logged, not checked). checked=False times it
-    alone (at 512^3, where the 256^3 check stands for it)."""
+    alone (at 512^3, where the 256^3 check stands for it).
+
+    With ``plane0`` the field is a slab's x-extended one (C, n_planes + 1,
+    M, M), at drift 0, and the columns are the slab's own: x is not padded
+    (the halo plane is in the field; extended plane i has its centre at
+    pixel i, so a position x sits at pixel x - plane0 - 1/2) and the twin
+    is gather_vec_slab_plain."""
     import math
 
     fn = torch.nn.functional
-    real = ps[0] < tp.SENTINEL_MIN
+    slab = plane0 is not None
+    nx = field.shape[1]
+    real = (ps[0] < tp.SENTINEL_MIN) & (
+        torch.arange(ps.shape[1], device="cuda") < ts[-1])
     xs = ps[:3, real].double() * m
     coords = (2.0 * (xs + 0.5) + 1.0) / (m + 2) - 1.0  # (x, y, z) rows
+    if slab:
+        coords[0] = 2.0 * (xs[0] - plane0) / nx - 1.0
     grid = coords.flip(0).T.float().reshape(1, 1, 1, -1, 3).contiguous()
     del xs, coords
 
     def sample(f):
-        pad = fn.pad(f[None], (1, 1, 1, 1, 1, 1), mode="circular")
+        pad = fn.pad(f[None], (1, 1, 1, 1, 0, 0) if slab
+                     else (1, 1, 1, 1, 1, 1), mode="circular")
         return pad, lambda: fn.grid_sample(pad, grid, mode="bilinear",
                                            padding_mode="zeros",
                                            align_corners=False)
@@ -542,14 +766,17 @@ def _grid_sample_yardstick(torch, tp, ps, ts, field, m, checked=True):
     def error(f):
         _, call = sample(f)
         got = call().reshape(3, -1)
-        want = tp.gather_vec_cl_plain(f, ps, ts, "cic")[:3, real]
+        want = (tp.gather_vec_slab_plain(f, ps, ts, "cic", 0, plane0) if slab
+                else tp.gather_vec_cl_plain(f, ps, ts, "cic"))[:3, real]
         return float((got - want).abs().max()), float(want.abs().max())
 
     if not checked:
         _, call = sample(field)
         return time_ms(torch, call)
     a = torch.arange(m, device="cuda", dtype=torch.float32) * (2 * math.pi / m)
-    x, y, z = torch.meshgrid(a, a, a, indexing="ij")
+    ax = a if not slab else (torch.arange(nx, device="cuda") + plane0) * (
+        2 * math.pi / m)
+    x, y, z = torch.meshgrid(ax.float(), a, a, indexing="ij")
     smooth = torch.stack([torch.sin(x + 2 * y), torch.cos(y - z),
                           torch.sin(3 * z + x)])
     del x, y, z
@@ -558,7 +785,8 @@ def _grid_sample_yardstick(torch, tp, ps, ts, field, m, checked=True):
           f"1e-5 x {scale:.3e} (smooth field, 256^3 CIC drift 0)")
     del smooth
     err_r, scale_r = error(field)
-    log(f"[3 bounds] grid_sample vs gather_vec_cl_plain, 256^3 CIC drift 0:"
+    log(f"[3 bounds] grid_sample vs the gather's twin"
+        f"{' on a slab' if slab else ''}, 256^3 CIC drift 0:"
         f" {err:.2e} of max {scale:.3e} on a smooth field (bound 1e-5 x "
         f"max); {err_r:.2e} of max {scale_r:.3e} on the white-noise field")
     _, call = sample(field)
@@ -976,16 +1204,18 @@ GOLDEN_PARAM = {
 }
 
 
-def phase_golden(np, tmp):
+def phase_golden(np, tmp, mode="single", devices=None, tag="4 golden"):
+    """The golden configuration through run(), in any parallel mode."""
     import pysco_tpu_torch
     from pysco_tpu_torch.cosmo import write_power_spectrum_table
 
     pk_file = os.path.join(tmp, "pk.dat")
     write_power_spectrum_table(pk_file)
-    base = os.path.join(tmp, "golden")
-    param = dict(GOLDEN_PARAM, power_spectrum_file=pk_file, base=base)
+    base = os.path.join(tmp, f"golden_{mode}")
+    param = dict(GOLDEN_PARAM, power_spectrum_file=pk_file, base=base,
+                 parallel_mode=mode)
     t0 = time.perf_counter()
-    recs = pysco_tpu_torch.run(param, device="cuda")
+    recs = pysco_tpu_torch.run(param, device="cuda", devices=devices)
     wall = time.perf_counter() - t0
     with open(os.path.join(REPO, "tests", "golden_pk_32.json")) as f:
         golden = {k: np.array(v) for k, v in json.load(f).items()}
@@ -1000,7 +1230,9 @@ def phase_golden(np, tmp):
         rel = float((np.abs(a[sel, 1] - b[sel, 1]) / np.abs(b[sel, 1])).max())
         check(rel < 1e-4, f"golden {name}: max rel P(k) diff {rel:.2e}")
         worst = max(worst, rel)
-    log(f"[4 golden] {len(recs)} steps in {wall:.2f} s; max rel P(k) diff "
+    log(f"[{tag}] {mode}"
+        f"{' on ' + str(len(devices)) + ' shards' if devices else ''}: "
+        f"{len(recs)} steps in {wall:.2f} s; max rel P(k) diff "
         f"vs tests/golden_pk_32.json {worst:.2e} (bound 1e-4)")
     return worst
 
@@ -1046,10 +1278,11 @@ def _check_outputs(torch, np, base, n, scheme, tag):
     return pos, vel
 
 
-def _drive(torch, tmp, tag, overrides, names):
+def _drive(torch, tmp, tag, overrides, names, devices=None):
     """One run of the port on the card at 256^3-class sizes, the launch
     counts and multigrid statistics zeroed just before and read just
-    after. Returns (records, launches, multigrid stats, base)."""
+    after; ``devices`` is the mesh of a multi-device mode. Returns
+    (records, launches, multigrid stats, base)."""
     import pysco_tpu_torch
     from pysco_tpu_torch.cosmo import write_power_spectrum_table
     from pysco_tpu_torch.models import multigrid
@@ -1067,7 +1300,7 @@ def _drive(torch, tmp, tag, overrides, names):
     stencil.reset_launches()
     multigrid.reset_stats()
     t0 = time.perf_counter()
-    recs = pysco_tpu_torch.run(param, device="cuda")
+    recs = pysco_tpu_torch.run(param, device="cuda", devices=devices)
     wall = time.perf_counter() - t0
     launches = {**tiled_pm.LAUNCHES, **stencil.LAUNCHES}
     stats = dict(multigrid.STATS)
@@ -1080,13 +1313,14 @@ def _drive(torch, tmp, tag, overrides, names):
     return recs, launches, stats, base
 
 
+MAIN_OVERRIDES = {"boxlen": 500.0, "ncoarse": 8, "npart": 256 ** 3,
+                  "z_out": "[2]", "mass_scheme": "CIC"}
+
+
 def phase_main_path(torch, np, tmp):
     n = 256
-    recs, launches, _, base = _drive(
-        torch, tmp, "5 main", {"boxlen": 500.0, "ncoarse": 8,
-                               "npart": n ** 3, "z_out": "[2]",
-                               "mass_scheme": "CIC"},
-        ("deposit", "gather"))
+    recs, launches, _, base = _drive(torch, tmp, "5 main", MAIN_OVERRIDES,
+                                     ("deposit", "gather"))
     drifts = [r.drift for r in recs]
     check(len(recs) >= 8, f"only {len(recs)} steps")
     check(any(drifts), "no stale-bin step")
@@ -1100,6 +1334,7 @@ def phase_main_path(torch, np, tmp):
     _check_outputs(torch, np, base, n, "cic", "5 main")
     log(f"[5 main] launches deposit {launches['deposit']}, gather "
         f"{launches['gather']}")
+    return base, float(np.median(stale_ms)), float(np.median(sorted_ms))
 
 
 E2E_PARAM = {  # tests/test_e2e.py's base configuration, npz snapshots
@@ -1364,13 +1599,13 @@ def phase_fr_main_path(torch, np, tmp):
     over = dict(FR_OVERRIDES, fR_n=1, boxlen=500.0, ncoarse=9,
                 npart=n ** 3, z_out="[20]", mass_scheme="CIC")
     recs, launches, stats, base = _drive(torch, tmp, "10 fr main", over,
-                                         tuple(KERNELS))
+                                         SINGLE_KERNELS)
     peak = torch.cuda.max_memory_allocated()
     check(len(recs) >= 3, f"only {len(recs)} f(R) steps")
     steps_ms = [1e3 * r.seconds for r in recs[1:]]
     fas, lin = _per_solve(stats)
     per_step = {k: (recs[-1].launches[k] - recs[0].launches[k])
-                / (len(recs) - 1) for k in KERNELS}
+                / (len(recs) - 1) for k in SINGLE_KERNELS}
     mean_u = [r.mean_additional for r in recs]
     check(all(np.isfinite(mean_u)) and all(abs(m - 1) < 0.1 for m in mean_u),
           f"mean(u) off its background value: {mean_u}")
@@ -1395,7 +1630,7 @@ def phase_fr_n2(torch, np, tmp):
     over = dict(FR_OVERRIDES, fR_n=2, boxlen=500.0, ncoarse=8,
                 npart=n ** 3, z_out="[30]", mass_scheme="TSC")
     recs, _, stats, base = _drive(torch, tmp, "11 fr n2", over,
-                                  tuple(KERNELS))
+                                  SINGLE_KERNELS)
     check(len(recs) >= 3, f"only {len(recs)} f(R) n = 2 steps")
     fas, lin = _per_solve(stats)
     log(f"[11 fr n2] median step "
@@ -1405,7 +1640,7 @@ def phase_fr_n2(torch, np, tmp):
     _check_outputs(torch, np, base, n, "tsc", "11 fr n2")
 
 
-def _capture_run(torch, tmp, tag, overrides, names):
+def _capture_run(torch, tmp, tag, overrides, names, devices=None):
     """:func:`_drive` with what the run logs (``run`` sends it to the
     standard error stream) returned as lines too."""
     import contextlib
@@ -1415,7 +1650,7 @@ def _capture_run(torch, tmp, tag, overrides, names):
     buf = io.StringIO()
     try:
         with contextlib.redirect_stderr(buf):
-            out = _drive(torch, tmp, tag, overrides, names)
+            out = _drive(torch, tmp, tag, overrides, names, devices)
     finally:  # the run's handler holds the buffer: back to the real stream
         logging.basicConfig(level=logging.ERROR, format="%(message)s",
                             force=True)
@@ -1533,6 +1768,124 @@ def phase_extras(torch, np, tmp):
         f"reordered runs max rel {same:.2e} (index_add_ atomics; bound 1e-5)")
 
 
+def _pk_files(np, base):
+    d = os.path.join(base, "power")
+    return {f: np.loadtxt(os.path.join(d, f)) for f in sorted(os.listdir(d))
+            if f.startswith("pk_")}
+
+
+def _per_step(recs, names):
+    """Launches of each kernel in every step of a run whose counts were
+    zeroed before it: the first step's count holds the initial force
+    evaluation's launches too, as many again, and is halved."""
+    prev, out = dict.fromkeys(names, 0), []
+    for i, r in enumerate(recs):
+        step = {k: r.launches[k] - prev[k] for k in names}
+        if i == 0:
+            check(all(v % 2 == 0 for v in step.values()),
+                  f"the first step and the initial evaluation: {step}")
+            step = {k: v // 2 for k, v in step.items()}
+        out.append(step)
+        prev = {k: r.launches[k] for k in names}
+    return out
+
+
+def phase_parallel(torch, np, tmp, main_base, main_stale, main_sorted):
+    """The multi-device modes on the one card; returns the slab path's
+    launch counts."""
+    from pysco_tpu_torch.utils import io as iostream
+
+    n, d = 256, 4
+    mesh4 = ["cuda:0"] * d
+    slab_over = dict(MAIN_OVERRIDES, parallel_mode="slab")
+    every = SLAB_KERNELS + ("deposit", "gather")
+    runs = []
+    for tag in ("13 slab", "13 slab again"):
+        recs, launches, _, base = _drive(torch, tmp, tag, slab_over,
+                                         SLAB_KERNELS, mesh4)
+        for r, step in zip(recs, _per_step(recs, every)):
+            check(step == {"deposit_slab": d, "gather_slab": d,
+                           "deposit": 0, "gather": 0},
+                  f"{tag} step {r.nsteps}: launches {step}, not {d} of each "
+                  "slab form and none of the single forms")
+        runs.append((recs, launches, base))
+    recs, slab_launches, base = runs[0]
+    drifts = [r.drift for r in recs]
+    check(len(recs) >= 8 and any(drifts) and 0 in drifts[1:],
+          f"slab drift levels {drifts}")
+    _check_outputs(torch, np, base, n, "cic", "13 slab")
+    # against phase 5's single-device run of the same configuration
+    single, worst = _pk_files(np, main_base), 0.0
+    mine = _pk_files(np, base)
+    check(sorted(mine) == sorted(single), f"P(k) files {sorted(mine)}")
+    for name, a in mine.items():
+        b = single[name]
+        check(np.array_equal(a[:, 2], b[:, 2]), f"{name}: mode counts")
+        sel = b[:, 2] >= 8
+        worst = max(worst, float((np.abs(a[sel, 1] - b[sel, 1])
+                                  / b[sel, 1]).max()))
+    check(worst <= 1e-5, f"slab vs single-device P(k): {worst:.2e} > 1e-5")
+    # two slab runs: bitwise
+    again = _pk_files(np, runs[1][2])
+    for name, a in mine.items():
+        check(np.array_equal(a, again[name]),
+              f"two slab runs differ in {name}")
+    snaps = []
+    for _, _, b in runs:
+        f = [x for x in os.listdir(os.path.join(b, "output_00001"))
+             if x.endswith(".npz")][0]
+        snaps.append(iostream.read_snapshot_particles_npz(
+            os.path.join(b, "output_00001", f)))
+    check(all(np.array_equal(x, y) for x, y in zip(*snaps)),
+          "two slab runs differ in their final snapshots")
+    stale = [1e3 * r.seconds for r in recs[1:] if r.drift]
+    srt = [1e3 * r.seconds for r in recs[1:] if r.drift == 0]
+    log(f"[13 slab] 256^3 on [cuda:0] x {d}: {d} deposit_slab and {d} "
+        f"gather_slab launches on every one of {len(recs)} steps "
+        f"(totals {slab_launches['deposit_slab']}, "
+        f"{slab_launches['gather_slab']}), none of the single forms; P(k) "
+        f"vs phase 5's single-device run max rel {worst:.2e} (bound 1e-5); "
+        "two slab runs bitwise equal (P(k) and final snapshot)")
+    log(f"[13 slab] median step: stale-bin {np.median(stale):.1f} ms "
+        f"({len(stale)} steps), sorted {np.median(srt):.1f} ms ({len(srt)} "
+        f"steps); phase 5 on the card alone: {main_stale:.1f} and "
+        f"{main_sorted:.1f} ms. Four shards taking turns on one card: what "
+        "the sharded machinery costs there, no statement about scaling")
+
+    # replicated on two shards, a few steps
+    recs, launches, _, base = _drive(
+        torch, tmp, "13 replicated",
+        dict(MAIN_OVERRIDES, parallel_mode="replicated", z_out="[30]"),
+        ("deposit", "gather"), ["cuda:0"] * 2)
+    for r, step in zip(recs, _per_step(recs, every)):
+        check(step == {"deposit_slab": 0, "gather_slab": 0, "deposit": 2,
+                       "gather": 2}, f"replicated step {r.nsteps}: {step}")
+    check(len(recs) >= 3 and not any(r.drift for r in recs),
+          f"replicated: {len(recs)} steps")
+    _check_outputs(torch, np, base, n, "cic", "13 replicated")
+    log(f"[13 replicated] 256^3 on [cuda:0] x 2: 2 deposits and 2 gathers a "
+        f"step; median step "
+        f"{np.median([1e3 * r.seconds for r in recs[1:]]):.1f} ms over "
+        f"{len(recs) - 1} steps (every step sorts)")
+
+    # the golden configuration in both modes
+    phase_golden(np, tmp, "slab", mesh4, "13 golden")
+    phase_golden(np, tmp, "replicated", mesh4, "13 golden")
+
+    # a slack so low that the first occupancy check re-balances
+    (recs, _, _, base), lines = _capture_run(
+        torch, tmp, "13 rebalance",
+        {"boxlen": 250.0, "ncoarse": 7, "npart": 128 ** 3, "z_out": "[30]",
+         "mass_scheme": "CIC", "parallel_mode": "slab", "slab_slack": 1.05,
+         "verbose": 1}, SLAB_KERNELS, mesh4)
+    fired = [ln for ln in lines if "re-balancing with slack" in ln]
+    check(fired, "no capacity re-balancing in the run's log")
+    _check_outputs(torch, np, base, 128, "cic", "13 rebalance")
+    log(f"[13 rebalance] 128^3, slab_slack = 1.05: {len(fired)} "
+        f"re-balancing(s) over {len(recs)} steps, first: {fired[0]!r}")
+    return slab_launches
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     check(os.path.isdir(os.path.join(REPO, "pysco_tpu_torch")),
@@ -1553,7 +1906,7 @@ def main() -> int:
     try:
         phase_golden(np, tmp)
         phase_pk_bitwise(torch)
-        phase_main_path(torch, np, tmp)
+        main_base, main_stale, main_sorted = phase_main_path(torch, np, tmp)
         phase_mg_e2e(np, tmp, (("newton_multigrid_tsc_2lpt", {}),
                                ("mond_multigrid", {"theory": "mond"})),
                      "6 mg e2e")
@@ -1565,6 +1918,9 @@ def main() -> int:
         launches = phase_fr_main_path(torch, np, tmp)
         phase_fr_n2(torch, np, tmp)
         phase_extras(torch, np, tmp)
+        slab_launches = phase_parallel(torch, np, tmp, main_base, main_stale,
+                                       main_sorted)
+        launches.update({k: slab_launches[k] for k in SLAB_KERNELS})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")

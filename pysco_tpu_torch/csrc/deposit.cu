@@ -43,7 +43,15 @@
 //   blocks the padded window spans), so a plain read-modify-write is safe
 //   and a deposit is bitwise the same on every run, as the reference's
 //   fixed-order deposit is. The periodic fold of the pads is left to
-//   PyTorch (tiled_pm._fold_padded).
+//   PyTorch (tiled_pm._fold_yz, and _fold_axis along x).
+// - One kernel for the whole grid and for an x-slab of it
+//   (pallas_pm.deposit_slab): the tiles are the slab's n_planes planes, the
+//   padded grid is n_planes + wx - 1 planes tall and is not periodic in x
+//   (its pads go to the neighbouring slabs, or fold onto the grid itself
+//   when the slab is the grid), and only the window's x offset under a stale
+//   sort needs the tile's global plane, plane + plane0. The residue classes
+//   in x stay disjoint for a slab thinner than the window: a class then
+//   holds one plane or none.
 
 #include <cub/block/block_radix_sort.cuh>
 
@@ -69,6 +77,7 @@ static_assert(sizeof(BlockSort::TempStorage) <= kSortScratch,
 
 struct DepositGeo {
   int m, w, drift, wx, wy_pad, wz_pad, zbs, nbz, nby, gy, gz;
+  int n_planes, plane0;  // the slab's planes, and the global plane of its first
   int wy, wz;    // the live window's y and z extents
   int nbins;     // z bins: key zl + w - 1 for zl in [1 - w, wz); nbins = none
   int key_bits;  // bits of nbins
@@ -76,9 +85,11 @@ struct DepositGeo {
 };
 
 DepositGeo make_geo(int m, int w, int drift, int wy_pad, int wz_pad, int zbs,
-                    int nbz) {
+                    int nbz, int n_planes = -1, int plane0 = 0) {
   DepositGeo g{};
   g.m = m;
+  g.n_planes = n_planes < 0 ? m : n_planes;
+  g.plane0 = plane0;
   g.w = w;
   g.drift = drift;
   g.wx = w + 2 * drift;
@@ -135,7 +146,7 @@ deposit_tiles(const float* __restrict__ pos, long long n_up,
               DepositGeo g, int rx, int ry, int rz, int sx, int sy, int sz,
               int ncy, int ncz) {
   const int b = blockIdx.x;
-  const int plane = rx + sx * (b / (ncy * ncz));
+  const int plane = rx + sx * (b / (ncy * ncz));  // slab-local
   const int yb = ry + sy * ((b / ncz) % ncy);
   const int zb = rz + sz * (b % ncz);
   const int t = (plane * g.nby + yb) * g.nbz + zb;
@@ -183,7 +194,7 @@ deposit_tiles(const float* __restrict__ pos, long long n_up,
               axis_weights(g.w, pos[2 * n_up + c] * fm, wt + 2 * g.w);
           const int zw = bz < 0 ? bz + g.m : bz;
           if (g.drift) {
-            dx = window_offset(bx, plane, g.m, g.drift);
+            dx = window_offset(bx, plane + g.plane0, g.m, g.drift);
             yl = window_offset(by, y0, g.m, g.drift);
           } else {  // fresh sort: the base plane is the tile's
             yl = (by < 0 ? by + g.m : by) - y0;
@@ -309,20 +320,25 @@ extern "C" long long pysco_deposit_smem(int m, int w, int drift, int wy_pad,
       smem_bytes(make_geo(m, w, drift, wy_pad, wz, zbs, nbz)));
 }
 
-// Deposit tile-sorted column particles pos (4, n_up) into the zeroed padded
-// grid gp (m + wx - 1, m + wy_pad - 8, gz): index i holds grid index
-// i - drift along x, y (and z when z-blocked, nbz > 1; gz = m + wz - zbs),
-// the full periodic z line otherwise (gz = wz = m). wy_pad and wz are the
-// padded window's y and z extents. Returns the CUDA error of the launches
-// (0 on success), cudaErrorInvalidValue for a window beyond a block's
-// shared memory.
+// Deposit the tile-sorted column particles pos (4, n_up) of the x-slab of
+// n_planes planes from global plane plane0 on (the whole grid: m and 0) into
+// the zeroed padded grid gp (n_planes + wx - 1, m + wy_pad - 8, gz): index i
+// holds grid plane plane0 + i - drift along x, grid index i - drift along y
+// (and z when z-blocked, nbz > 1; gz = m + wz - zbs), the full periodic z
+// line otherwise (gz = wz = m). starts holds the slab's
+// n_planes * (m / 8) * nbz + 1 tile starts. wy_pad and wz are the padded
+// window's y and z extents. Returns the CUDA error of the launches (0 on
+// success), cudaErrorInvalidValue for a slab outside the grid or a window
+// beyond a block's shared memory.
 extern "C" int pysco_deposit(const float* pos, long long n_up,
                              const int* starts, float* gp, int m, int w,
                              int drift, int wy_pad, int wz, int zbs, int nbz,
-                             void* stream) {
-  const DepositGeo g = make_geo(m, w, drift, wy_pad, wz, zbs, nbz);
+                             int n_planes, int plane0, void* stream) {
+  const DepositGeo g =
+      make_geo(m, w, drift, wy_pad, wz, zbs, nbz, n_planes, plane0);
   const size_t smem = smem_bytes(g);
-  if (smem > static_cast<size_t>(kSmemLimit)) {
+  if (smem > static_cast<size_t>(kSmemLimit) || n_planes < 1 || plane0 < 0 ||
+      plane0 + n_planes > m) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -336,7 +352,7 @@ extern "C" int pysco_deposit(const float* pos, long long n_up,
   for (int rx = 0; rx < sx; ++rx) {
     for (int ry = 0; ry < sy; ++ry) {
       for (int rz = 0; rz < sz; ++rz) {
-        const int ncx = rx < m ? (m - rx + sx - 1) / sx : 0;
+        const int ncx = rx < n_planes ? (n_planes - rx + sx - 1) / sx : 0;
         const int ncy = ry < g.nby ? (g.nby - ry + sy - 1) / sy : 0;
         const int ncz = rz < nbz ? (nbz - rz + sz - 1) / sz : 0;
         const int nblocks = ncx * ncy * ncz;

@@ -58,6 +58,15 @@
 // - Columns outside every tile (the sentinel tail, x >= 1.5) return 0, and
 //   rows C..3 of the output are 0; a few blocks past the marching ones
 //   write the columns before the first tile and after the last.
+// - One kernel, two x modes. Over the periodic field (C, m, m, m) a window's
+//   planes wrap in x. Over a slab (pallas_pm.gather_vec_slab) the field is
+//   the slab's n_planes planes extended by drift planes of the left
+//   neighbour and w - 1 + drift of the right, (C, n_planes + wx - 1, m, m):
+//   slot k of local plane p is extended plane p + k, nothing wraps in x, and
+//   a column of tiles does not close on itself, so the first wx planes of a
+//   run are its prologue in both modes. y and z wrap in both. A support
+//   cell beyond the extended field (a particle past its drift bound in x)
+//   counts 0, as the twin's (tiled_pm.gather_vec_slab_plain).
 
 #include "tiled_pm.cuh"
 
@@ -77,6 +86,10 @@ constexpr int kWaves = 2;           // blocks per resident slot of the card
 
 struct GatherGeo {
   int m, w, drift, nby, nbz, zbs, ntiles;
+  int n_planes;    // x-planes of tiles: m, or the slab's
+  int plane0;      // global plane of the first (0 over the periodic field)
+  int slab;        // 1: the field is a slab's x-extended planes, not periodic
+  int nx;          // x-planes the field holds: m, or n_planes + wx - 1
   int wx, wy, wz;  // the live window's extents
   int wzs;         // z stride of a staged row: whole 16-byte groups
   int ncomp;       // field components
@@ -85,15 +98,19 @@ struct GatherGeo {
 };
 
 GatherGeo make_geo(int m, int w, int drift, int zbs, int nbz, int ncomp,
-                   int ncs) {
+                   int ncs, int n_planes = -1, int plane0 = 0, int slab = 0) {
   GatherGeo g{};
+  g.n_planes = n_planes < 0 ? m : n_planes;
+  g.plane0 = plane0;
+  g.slab = slab;
+  g.nx = slab ? g.n_planes + w + 2 * drift - 1 : m;
   g.m = m;
   g.w = w;
   g.drift = drift;
   g.nby = m / kYB;
   g.nbz = nbz;
   g.zbs = zbs;
-  g.ntiles = m * g.nby * nbz;
+  g.ntiles = g.n_planes * g.nby * nbz;
   g.wx = w + 2 * drift;
   g.wy = kYB + g.wx - 1;
   g.wz = nbz == 1 ? m : zbs + g.wx - 1;
@@ -122,9 +139,10 @@ void set_runs(GatherGeo& g, int sms, int smem_sm, int reserved) {
   if (by_smem < per_sm) per_sm = by_smem > 0 ? by_smem : 1;
   const int columns = g.nby * g.nbz;
   const int want = (kWaves * sms * per_sm + columns - 1) / columns;
-  g.nruns = want < 1 ? 1 : (want > g.m ? g.m : want);
-  g.run = (g.m + g.nruns - 1) / g.nruns;
-  g.nruns = (g.m + g.run - 1) / g.run;
+  const int np = g.n_planes;
+  g.nruns = want < 1 ? 1 : (want > np ? np : want);
+  g.run = (np + g.nruns - 1) / g.nruns;
+  g.nruns = (np + g.run - 1) / g.run;
 }
 
 __device__ __forceinline__ int pmod(int i, int m) {
@@ -147,20 +165,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Start copying components [c0, c0 + ncs) of x-plane xg (any integer; the
-// field wraps) of the window whose first (y, z) cell is (y0, z0) into ring
+// Offset of a base cell from its slab's first plane under a stale sort: the
+// modular offset mapped to [-drift, m - drift), plus drift (its extended
+// plane; tiled_pm._window_offset).
+__device__ __forceinline__ int window_offset(int base, int origin, int m,
+                                             int drift) {
+  const int raw = pmod(base - origin, m);
+  return (raw >= m - drift ? raw - m : raw) + drift;
+}
+
+// Plane of the field that holds slot k of the window of local plane p: over
+// the periodic field plane p - drift + k, wrapped; over a slab extended
+// plane p + k.
+__device__ __forceinline__ int field_plane(const GatherGeo& g, int p, int k) {
+  return g.slab ? p + k : pmod(p - g.drift + k, g.m);
+}
+
+// Start copying components [c0, c0 + ncs) of the field's x-plane xf of the
+// window whose first (y, z) cell is (y0, z0) into ring
 // slot `slot`: row (c, ya) at ((slot * ncs + c) * wy + ya) * wzs, window z
 // offset zl at zl + (z0 - za), za the first 16-byte group's first cell.
 __device__ __forceinline__ void stage_plane(const float* __restrict__ field,
                                             float* win, const GatherGeo& g,
-                                            int c0, int xg, int slot, int y0,
+                                            int c0, int xf, int slot, int y0,
                                             int z0) {
-  const long long vol = static_cast<long long>(g.m) * g.m * g.m;
+  const long long vol = static_cast<long long>(g.nx) * g.m * g.m;
   const int za = z0 - pmod(z0, kVec);
   const int ngroups = g.wzs / kVec;
   const int rows = g.ncs * g.wy;
   const float* plane =
-      field + c0 * vol + static_cast<long long>(pmod(xg, g.m)) * g.m * g.m;
+      field + c0 * vol + static_cast<long long>(xf) * g.m * g.m;
   float* dst0 = win + slot * g.ncs * g.wy * g.wzs;
   for (int idx = threadIdx.x; idx < rows * ngroups; idx += kThreads) {
     const int row = idx / ngroups;
@@ -218,7 +252,7 @@ __device__ __forceinline__ void gather_batch(
     const float* __restrict__ field, const Batch& bt, long long n_up,
     float* __restrict__ out, const float* win, const GatherGeo& g, int first,
     int end, int c0, int x0, int y0, int z0, int lead, int sbase) {
-  const long long vol = static_cast<long long>(g.m) * g.m * g.m;
+  const long long vol = static_cast<long long>(g.nx) * g.m * g.m;
   const float fm = static_cast<float>(g.m);
   const int cstride = g.wy * g.wzs;
   const int sstride = g.ncs * cstride;
@@ -264,8 +298,10 @@ __device__ __forceinline__ void gather_batch(
           }
         }
       } else {
+        const int ex = g.slab ? window_offset(bx, g.plane0, g.m, g.drift) : 0;
         for (int a = 0; a < W; ++a) {
-          const int ix = pmod(bx + a, g.m);
+          const int ix = g.slab ? ex + a : pmod(bx + a, g.m);
+          const bool held = ix < g.nx;  // always, over the periodic field
           for (int b = 0; b < W; ++b) {
             const long long row =
                 (static_cast<long long>(ix) * g.m + pmod(by + b, g.m)) * g.m;
@@ -275,7 +311,7 @@ __device__ __forceinline__ void gather_batch(
               const float wt = wxy * wz[k];
 #pragma unroll
               for (int c = 0; c < NC; ++c) {
-                acc[c] += field[(c0 + c) * vol + cell] * wt;
+                acc[c] += (held ? field[(c0 + c) * vol + cell] : 0.0f) * wt;
               }
             }
           }
@@ -310,7 +346,7 @@ gather_march(const float* __restrict__ field, const float* __restrict__ pos,
   const int zb = b % g.nbz;
   const int yb = (b / g.nbz) % g.nby;
   const int p0 = (b / (g.nbz * g.nby)) * g.run;
-  const int p1 = min(p0 + g.run, g.m);
+  const int p1 = min(p0 + g.run, g.n_planes);
   const int y0 = yb * kYB - g.drift;
   const int z0 = g.nbz == 1 ? 0 : zb * g.zbs - g.drift;
   const int lead = pmod(z0, kVec);
@@ -322,7 +358,7 @@ gather_march(const float* __restrict__ field, const float* __restrict__ pos,
     if (c0) __syncthreads();  // every read of the previous pass done
     // the first tile's planes
     for (int k = 0; k < g.wx; ++k) {
-      stage_plane(field, win, g, c0, p0 - g.drift + k, k, y0, z0);
+      stage_plane(field, win, g, c0, field_plane(g, p0, k), k, y0, z0);
     }
     cp_async_commit();
     int start = starts[t0], end = starts[t0 + 1];
@@ -346,7 +382,8 @@ gather_march(const float* __restrict__ field, const float* __restrict__ pos,
         load_batch(nxt, pos, n_up, nstart, nend);
       }
       gather_batch<W, NC>(field, cur, n_up, out, win, g, first, end, c0,
-                          p - g.drift, y0, z0, lead, (p - p0) % g.wx);
+                          p + g.plane0 - g.drift, y0, z0, lead,
+                          (p - p0) % g.wx);
       if (same) {
         cur = nxt;
         first += kStep;
@@ -355,8 +392,8 @@ gather_march(const float* __restrict__ field, const float* __restrict__ pos,
       if (p + 1 >= p1) break;
       __syncthreads();  // every read of plane p - drift done: slot free
       // the last plane of tile p + 1, whose positions stream in meanwhile
-      stage_plane(field, win, g, c0, p - g.drift + g.wx, (p - p0) % g.wx, y0,
-                  z0);
+      stage_plane(field, win, g, c0, field_plane(g, p, g.wx),
+                  (p - p0) % g.wx, y0, z0);
       cp_async_commit();
       ++p;
       start = nstart;
@@ -411,19 +448,26 @@ extern "C" long long pysco_gather_smem(int m, int w, int drift, int zbs,
       smem_bytes(make_geo(m, w, drift, zbs, nbz, ncs, ncs)));
 }
 
-// Interpolate field (ncomp <= 4, m, m, m; 16-byte aligned) at the columns of
-// pos (4, n_up), tile-sorted into ntiles = m * (m / 8) * nbz tiles of
-// z-block size zbs, into out (4, n_up); drift widens the staged windows for
-// a stale sort; ncs (1 or ncomp) components are staged a pass. Returns the
+// Interpolate field (ncomp <= 4 components; 16-byte aligned) at the columns
+// of pos (4, n_up), tile-sorted into ntiles = n_planes * (m / 8) * nbz tiles
+// of z-block size zbs, into out (4, n_up); drift widens the staged windows
+// for a stale sort; ncs (1 or ncomp) components are staged a pass. With
+// slab = 0 the field is the periodic (ncomp, m, m, m) grid (n_planes = m,
+// plane0 = 0); with slab = 1 it is (ncomp, n_planes + w - 1 + 2 drift, m, m),
+// extended plane i holding grid plane plane0 + i - drift. Returns the
 // CUDA error of the launch (0 on success), cudaErrorInvalidValue for
 // arguments the kernel does not take or a ring beyond a block's shared
 // memory.
 extern "C" int pysco_gather(const float* field, int ncomp, const float* pos,
                             long long n_up, const int* starts, int ntiles,
                             float* out, int m, int w, int drift, int zbs,
-                            int nbz, int ncs, void* stream) {
-  GatherGeo g = make_geo(m, w, drift, zbs, nbz, ncomp, ncs);
-  if (ncomp < 1 || ncomp > 4 || (ncs != 1 && ncs != ncomp) || m % kYB ||
+                            int nbz, int ncs, int n_planes, int plane0,
+                            int slab, void* stream) {
+  GatherGeo g =
+      make_geo(m, w, drift, zbs, nbz, ncomp, ncs, n_planes, plane0, slab);
+  if (n_planes < 1 || plane0 < 0 || plane0 + n_planes > m ||
+      (!slab && (n_planes != m || plane0 != 0)) ||
+      ncomp < 1 || ncomp > 4 || (ncs != 1 && ncs != ncomp) || m % kYB ||
       zbs * nbz != m || ntiles != g.ntiles || w < 1 || w > 3 || drift < 0 ||
       smem_bytes(g) > static_cast<size_t>(kSmemLimit) ||
       reinterpret_cast<size_t>(field) % 16) {

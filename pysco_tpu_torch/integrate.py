@@ -40,6 +40,25 @@ def _half_dt(dt) -> tuple[float, float]:
     return float(dt), float(np.float32(0.5) * dt)
 
 
+def kick_drift(integrator: str, position, velocity, acceleration, dt):
+    """The part of a step before its force evaluation: leapfrog's first
+    half kick then the drift, or Euler's drift then its whole kick, and the
+    periodic wrap. Returns (position, velocity, last_kick): leapfrog's
+    closing half kick is ``velocity - acceleration * last_kick`` with the
+    new acceleration; Euler has none (0.0)."""
+    dt, half_dt = _half_dt(dt)
+    if integrator == "leapfrog":
+        velocity = velocity - acceleration * half_dt
+        position = mesh.periodic_wrap(position + velocity * dt)
+        return position, velocity, half_dt
+    if integrator == "euler":
+        position = mesh.periodic_wrap(position + velocity * dt)
+        return position, velocity - acceleration * dt, 0.0
+    raise NotImplementedError(
+        f"integrator {integrator!r}, must be 'leapfrog' or 'euler'"
+    )
+
+
 def step_impl(cfg: SolverConfig, integrator: str, first_call: bool,
               save_pk: bool, position, velocity, acceleration, potential, u,
               dyn: DynScalars, dt):
@@ -47,24 +66,13 @@ def step_impl(cfg: SolverConfig, integrator: str, first_call: bool,
     acceleration, potential, u, pk, diagnostics). ``first_call`` starts
     the multigrid solves from a Jacobi guess (the run loop passes False:
     its first force evaluation comes before the loop)."""
-    dt, half_dt = _half_dt(dt)
-    if integrator == "leapfrog":
-        velocity = velocity - acceleration * half_dt
-        position = mesh.periodic_wrap(position + velocity * dt)
-        (position, velocity, acceleration, potential, u, pk,
-         overflow) = solver_mod.pm(cfg, first_call, save_pk, position,
-                                   velocity, potential, u, dyn)
-        velocity = velocity - acceleration * half_dt
-    elif integrator == "euler":
-        position = mesh.periodic_wrap(position + velocity * dt)
-        velocity = velocity - acceleration * dt
-        (position, velocity, acceleration, potential, u, pk,
-         overflow) = solver_mod.pm(cfg, first_call, save_pk, position,
-                                   velocity, potential, u, dyn)
-    else:
-        raise NotImplementedError(
-            f"integrator {integrator!r}, must be 'leapfrog' or 'euler'"
-        )
+    position, velocity, last_kick = kick_drift(
+        integrator, position, velocity, acceleration, dt)
+    (position, velocity, acceleration, potential, u, pk,
+     overflow) = solver_mod.pm(cfg, first_call, save_pk, position,
+                               velocity, potential, u, dyn)
+    if last_kick:
+        velocity = velocity - acceleration * last_kick
     diag = _diagnostics(acceleration, velocity, u, overflow)
     return position, velocity, acceleration, potential, u, pk, diag
 
@@ -76,26 +84,14 @@ def step_lazy_impl(cfg: SolverConfig, integrator: str, presorted: int,
     (:func:`solver._pm_lazy_impl`): ``presorted = k >= 1`` skips the sort
     and uses k-cell drift-widened windows. Returns (position, velocity,
     acceleration, potential, u, tstarts, pk, diagnostics)."""
-    dt, half_dt = _half_dt(dt)
-    if integrator == "leapfrog":
-        velocity = velocity - acceleration * half_dt
-        position = mesh.periodic_wrap(position + velocity * dt)
-        (position, velocity, tstarts, acceleration, potential, u, pk,
-         overflow) = solver_mod._pm_lazy_impl(
-            cfg, presorted, save_pk, position, velocity, tstarts, potential,
-            u, dyn)
-        velocity = velocity - acceleration * half_dt
-    elif integrator == "euler":
-        position = mesh.periodic_wrap(position + velocity * dt)
-        velocity = velocity - acceleration * dt
-        (position, velocity, tstarts, acceleration, potential, u, pk,
-         overflow) = solver_mod._pm_lazy_impl(
-            cfg, presorted, save_pk, position, velocity, tstarts, potential,
-            u, dyn)
-    else:
-        raise NotImplementedError(
-            f"integrator {integrator!r}, must be 'leapfrog' or 'euler'"
-        )
+    position, velocity, last_kick = kick_drift(
+        integrator, position, velocity, acceleration, dt)
+    (position, velocity, tstarts, acceleration, potential, u, pk,
+     overflow) = solver_mod._pm_lazy_impl(
+        cfg, presorted, save_pk, position, velocity, tstarts, potential,
+        u, dyn)
+    if last_kick:
+        velocity = velocity - acceleration * last_kick
     diag = _diagnostics(acceleration, velocity, u, overflow)
     return (position, velocity, acceleration, potential, u, tstarts, pk,
             diag)

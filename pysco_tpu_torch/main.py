@@ -1,5 +1,4 @@
-"""Run loop and CLI (PyTorch port of ``pysco_tpu/main.py``, single-device
-mode).
+"""Run loops and CLI (PyTorch port of ``pysco_tpu/main.py``).
 
 ``run(param, device)`` computes the background tables on the host and
 the initial conditions on the device (LPT on the tiled engine, unless
@@ -8,6 +7,9 @@ kick-drift-kick loop on the device, writing snapshots and power spectra
 at each ``z_out``. The
 host picks dt from the previous step's max |acc| and max |vel|, and
 the lazy re-binning level from the accumulated drift bound.
+``parallel_mode = replicated`` and ``slab`` run the same loop over a mesh
+of devices (``parallel/``): particles sharded and grids replicated, or
+both sharded in x-slabs.
 """
 
 from __future__ import annotations
@@ -143,17 +145,66 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def run(param, device="cuda") -> list:
+def _output_times(param, tables, z_out):
+    """The output scale factors and times, and the snapshot counter moved
+    on to the first of them."""
+    aexp_out = np.sort(1.0 / (np.array(z_out, dtype=np.float64) + 1))
+    t_out = np.array([float(tables[1](np.log(a))) for a in aexp_out])
+    logging.info("aexp_out=%s", aexp_out)
+    param["i_snap"] = int(param.get("i_snap", 0)) + 1
+    return aexp_out, t_out
+
+
+def _finish_step(param, cfg, records, t_step0, presorted, diag,
+                 what: str, save_pk: bool, pk) -> tuple:
+    """The end of a step in every loop: fetch the diagnostics (which
+    synchronises the devices, so the step's wall time is a true one), record
+    the step, abort on an overflow, then write the P(k). Returns
+    (max_abs_acc, max_abs_vel)."""
+    max_abs_acc = float(diag.max_abs_acc)
+    max_abs_vel = float(diag.max_abs_vel)
+    overflow = int(diag.overflow)
+    seconds = perf_counter() - t_step0
+    mean_u = float(diag.mean_additional)
+    logging.info("step wall time: %.1f ms", 1e3 * seconds)
+    records.append(StepRecord(int(param["nsteps"]), presorted, seconds,
+                              overflow,
+                              {**tiled_pm.LAUNCHES, **stencil.LAUNCHES},
+                              mean_u))
+    _handle_overflow(param, overflow, what)
+    if save_pk:
+        _write_pk(pk, param)
+    if cfg.theory == "fr" and param["nsteps"] % 10 == 0:
+        logging.info("mean(u_scalaron)=%s (should stay close to 1)", mean_u)
+    return max_abs_acc, max_abs_vel
+
+
+def run(param, device="cuda", devices=None) -> list:
     """Run an N-body simulation from a parameter container (dict/Params)
     on ``device`` (``"cuda"`` by default; raises if CUDA is not
     available, and never falls back to the CPU on its own).
 
+    ``parallel_mode = replicated`` and ``slab`` run on the mesh
+    ``devices``: an ordered list of devices, one per shard, in which a
+    device may appear more than once (``["cuda:0"] * 4`` runs four shards
+    in turns on one card, ``["cpu"] * 4`` on the CPU); by default every
+    visible card, or the CPU alone for ``device="cpu"``. ``single``
+    ignores it.
+
     Returns one :class:`StepRecord` per step of the loop.
 
-    Differences from ``pysco_tpu.run``: only ``parallel_mode = single``;
-    and a step's drift-bound violation count is checked *before* its
-    power spectrum is written, so an aborted step leaves no P(k) file
-    (the JAX loop writes first).
+    Differences from ``pysco_tpu.run``: a step's overflow count (drift-bound
+    violations, slab capacity) is checked *before* its power spectrum is
+    written, in all three loops, so an aborted step leaves no P(k) file
+    (the JAX loops write first). Slab mode runs the FFT solvers
+    (``fft``, ``fft_7pt``, ``full_fft``) with ``theory = newton``,
+    ``parametrized`` or ``mond``; it still refuses, with
+    ``NotImplementedError``, ``linear_newton_solver = multigrid`` and
+    ``theory = fr`` (the slab multigrid and FAS of
+    ``pysco_tpu/parallel/slab_mg.py``), and it builds its initial
+    conditions on the host and distributes them (the sharded LPT of
+    ``pysco_tpu/parallel/ic_slab.py`` is not ported): both are the port's
+    next slice.
     """
     device = _resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -201,15 +252,21 @@ def run(param, device="cuda") -> list:
     logging.warning("aexp=%s t=%s", param["aexp"], param["t"])
 
     parallel_mode = str(param.get("parallel_mode", "single")).casefold()
-    if parallel_mode != "single":
-        raise NotImplementedError(
-            f"parallel_mode={parallel_mode!r}: the PyTorch port runs "
-            "'single'; ROADMAP.md Queue 1 slice 4 (multi-GPU) brings the "
-            "replicated and slab modes"
-        )
     cfg = solver_mod.config_from_param(param)
     integrator = str(param["integrator"]).casefold()
     pk_mode = _save_pk_mode(param)
+    if parallel_mode in ("slab", "replicated"):
+        from .parallel import mesh as pmesh
+
+        mesh = pmesh.make_mesh(devices=devices, device=device)
+        loop = _run_slab if parallel_mode == "slab" else _run_replicated
+        return loop(param, tables, cfg, integrator, pk_mode, position,
+                    velocity, z_out, mesh)
+    if parallel_mode != "single":
+        raise NotImplementedError(
+            f"parallel_mode={parallel_mode!r}, should be 'single', "
+            "'replicated' or 'slab'"
+        )
 
     if not device_ic:
         if cfg.particle_engine == "pallas":
@@ -248,10 +305,7 @@ def run(param, device="cuda") -> list:
                 type(e).__name__,
             )
 
-    aexp_out = np.sort(1.0 / (np.array(z_out, dtype=np.float64) + 1))
-    t_out = np.array([float(tables[1](np.log(a))) for a in aexp_out])
-    logging.info("aexp_out=%s", aexp_out)
-    param["i_snap"] = int(param.get("i_snap", 0)) + 1
+    aexp_out, t_out = _output_times(param, tables, z_out)
 
     max_abs_acc = float(torch.max(torch.abs(acceleration)))
     max_abs_vel = float(torch.max(torch.abs(velocity)))
@@ -307,27 +361,10 @@ def run(param, device="cuda") -> list:
                 )
             if tracing and device.type == "cuda":
                 torch.cuda.synchronize(device)  # the step's end in the window
-        # these fetches synchronise the device: a true per-step wall time
-        max_abs_acc = float(diag.max_abs_acc)
-        max_abs_vel = float(diag.max_abs_vel)
-        overflow = int(diag.overflow)
-        seconds = perf_counter() - t_step0
-        mean_u = float(diag.mean_additional)
-        logging.info("step wall time: %.1f ms", 1e3 * seconds)
-        records.append(StepRecord(int(param["nsteps"]), presorted, seconds,
-                                  overflow,
-                                  {**tiled_pm.LAUNCHES, **stencil.LAUNCHES},
-                                  mean_u))
-        _handle_overflow(
-            param, overflow,
+        max_abs_acc, max_abs_vel = _finish_step(
+            param, cfg, records, t_step0, presorted, diag,
             "lazy re-binning drift-bound violation (particles outside the "
-            "widened windows)",
-        )
-        if save_pk:
-            _write_pk(pk, param)
-        if cfg.theory == "fr" and param["nsteps"] % 10 == 0:
-            logging.info("mean(u_scalaron)=%s (should stay close to 1)",
-                         mean_u)
+            "widened windows)", save_pk, pk)
         if (param["nsteps"] % int(param["n_reorder"]) == 0
                 and cfg.particle_engine != "pallas"):
             # the tiled engine re-sorts at every force evaluation already
@@ -337,6 +374,206 @@ def run(param, device="cuda") -> list:
         if param["write_snapshot"]:
             pos_np, vel_np = solver_mod.particles_to_rows(cfg, position,
                                                           velocity)
+            iostream.write_snapshot_particles(pos_np, vel_np, param)
+            param["i_snap"] = int(param["i_snap"]) + 1
+        logging.warning(
+            "nsteps=%d aexp=%.6f z=%.4f",
+            param["nsteps"], param["aexp"], 1.0 / param["aexp"] - 1,
+        )
+    return records
+
+
+def _run_replicated(param, tables, cfg, integrator, pk_mode, position,
+                    velocity, z_out, mesh) -> list:
+    """Replicated-grid run loop (``parallel/pm.py``): particles sharded
+    over the mesh, field grids replicated, one sum of the deposited grids
+    per force evaluation and everything else local. Every theory, solver
+    and engine of the single mode; a sort at every step."""
+    from .parallel import pm as par_pm
+
+    n_dev = len(mesh)
+    logging.warning("replicated-grid mode: %d devices, %d particles each",
+                    n_dev, cfg.npart // n_dev)
+    par_pm.check_shardable(cfg, n_dev)
+    if cfg.particle_engine == "pallas":
+        position, velocity = tiled_pm.to_columns_host(position, velocity,
+                                                      cfg.npart)
+    position = np.asarray(position, np.float32)
+    phi0, u0 = solver_mod.empty_fields(cfg, "cpu")
+    pos_d, vel_d, acc_d, phi_d, u_d = par_pm.shard_state(
+        mesh, position, np.asarray(velocity, np.float32),
+        np.zeros_like(position), phi0, u0)
+
+    logging.warning("----- Run N-body -----")
+    dyn = solver_mod.compute_dynamics(param)
+    save_pk_first = pk_mode == "yes"
+    # first force evaluation: a zero-dt step is deposit -> sum -> solve ->
+    # gather
+    pos_d, vel_d, acc_d, phi_d, u_d, pk, diag = par_pm.make_sharded_step(
+        cfg, mesh, integrator, first_call=True, save_pk=save_pk_first,
+    )(pos_d, vel_d, acc_d, phi_d, u_d, dyn, 0.0)
+    if save_pk_first:
+        _write_pk(pk, param)
+    steps = {flag: par_pm.make_sharded_step(cfg, mesh, integrator,
+                                            save_pk=flag)
+             for flag in (False, True)}
+
+    aexp_out, t_out = _output_times(param, tables, z_out)
+    max_abs_acc = float(diag.max_abs_acc)
+    max_abs_vel = float(diag.max_abs_vel)
+    records = []
+    while param["aexp"] < aexp_out[-1]:
+        param["nsteps"] = int(param["nsteps"]) + 1
+        dt = _advance_time(param, tables, aexp_out, t_out,
+                           max_abs_acc, max_abs_vel)
+        dyn = solver_mod.compute_dynamics(param)
+        save_pk = pk_mode == "yes" or (
+            pk_mode == "z_out" and param["write_snapshot"]
+        )
+        t_step0 = perf_counter()
+        pos_d, vel_d, acc_d, phi_d, u_d, pk, diag = steps[save_pk](
+            pos_d, vel_d, acc_d, phi_d, u_d, dyn, dt)
+        max_abs_acc, max_abs_vel = _finish_step(
+            param, cfg, records, t_step0, 0, diag,
+            "particle engine overflow", save_pk, pk)
+        if (param["nsteps"] % int(param["n_reorder"]) == 0
+                and cfg.particle_engine != "pallas"):
+            logging.info("Reordering particles")
+            for r in range(n_dev):  # each shard's rows, among themselves
+                pos_d[r], vel_d[r], acc_d[r] = mesh_ops.reorder_particles(
+                    pos_d[r], vel_d[r], acc_d[r])
+        if param["write_snapshot"]:
+            pos_np, vel_np = solver_mod.particles_to_rows(
+                cfg, *par_pm.gather_state(pos_d, vel_d))
+            iostream.write_snapshot_particles(pos_np, vel_np, param)
+            param["i_snap"] = int(param["i_snap"]) + 1
+        logging.warning(
+            "nsteps=%d aexp=%.6f z=%.4f",
+            param["nsteps"], param["aexp"], 1.0 / param["aexp"] - 1,
+        )
+    return records
+
+
+def _run_slab(param, tables, cfg, integrator, pk_mode, position, velocity,
+              z_out, mesh) -> list:
+    """Slab-decomposed run loop (``parallel/slab.py``): grids and particles
+    sharded in x over the mesh; the tiled engine and the FFT solvers
+    only. The initial conditions come from the host and are distributed
+    by their base plane."""
+    from .parallel import slab
+
+    slab.check_supported(cfg)
+    n_dev = len(mesh)
+    logging.warning("slab mode: %d devices, %d planes each",
+                    n_dev, cfg.ncells_1d // n_dev)
+    slack = float(param.get("slab_slack", 1.25))
+    (pos_d, vel_d, acc_d, phi_d, u_d, ts_d) = slab.distribute_particles(
+        mesh, cfg, position, velocity, slack)
+    del position, velocity
+    step_fns = {}
+
+    def step_fn(save_pk, presorted=0):
+        key = (save_pk, presorted)
+        if key not in step_fns:
+            step_fns[key] = slab.make_slab_step(
+                cfg, mesh, integrator, save_pk=save_pk, presorted=presorted)
+        return step_fns[key]
+
+    logging.warning("----- Run N-body -----")
+    dyn = solver_mod.compute_dynamics(param)
+    save_pk_first = pk_mode == "yes"
+    # first force evaluation: a zero-dt step (a kick by acc = 0 and no
+    # drift) is migrate -> sort -> deposit -> solve -> gather
+    pos_d, vel_d, acc_d, phi_d, u_d, ts_d, pk, diag = step_fn(save_pk_first)(
+        pos_d, vel_d, acc_d, phi_d, u_d, ts_d, dyn, 0.0)
+    _handle_overflow(param, int(diag.overflow),
+                     "slab particle capacity overflow")
+    if save_pk_first:
+        _write_pk(pk, param)
+
+    # CFL-bounded lazy re-binning, the single-device loop's bound:
+    # migration and the sort are skipped while the drift since the last
+    # sort fits a window. A k-cell window needs slabs of at least
+    # w - 1 + k planes.
+    lazy = bool(param.get("lazy_sort", True))
+    w = slab._WIDTH[cfg.mass_scheme]
+    max_drift = min(int(cfg.lazy_drift),
+                    max(cfg.ncells_1d // n_dev - (w - 1), 0))
+    if max_drift < 1:
+        lazy = False
+    cum_drift = np.inf  # the first loop step sorts
+
+    aexp_out, t_out = _output_times(param, tables, z_out)
+    max_abs_acc = float(diag.max_abs_acc)
+    max_abs_vel = float(diag.max_abs_vel)
+
+    # Capacity re-balancing ahead of need: the slabs take on the density
+    # contrast along x as structure forms. Rather than stepping until a
+    # shard overflows (an abort), watch the fullest shard after every sorted
+    # step and grow every shard's buffers before a particle is at risk;
+    # growing appends sentinel columns on each device.
+    headroom = float(param.get("slab_rebalance_headroom", 0.9))
+
+    def rebalance_if_needed():
+        nonlocal pos_d, vel_d, acc_d, slack
+        if not 0.0 < headroom < 1.0:
+            return  # disabled
+        cap = pos_d[0].shape[1]
+        max_count = max(int(t[-1]) for t in ts_d)
+        occ = max_count / cap
+        if occ <= headroom:
+            return
+        slack_new = slack * 1.5
+        # capacities come in whole column quanta: grow until one more fits
+        while slab.shard_capacity(cfg.npart, n_dev, slack_new) <= cap:
+            slack_new *= 1.5
+        logging.warning(
+            "slab occupancy %.0f%% of capacity (max shard %d / %d): "
+            "re-balancing with slack %.2f -> %.2f",
+            100 * occ, max_count, cap, slack, slack_new,
+        )
+        slack = slack_new
+        param["slab_slack"] = slack  # a restart inherits the grown capacity
+        pos_d, vel_d, acc_d = slab.grow_capacity(
+            slab.shard_capacity(cfg.npart, n_dev, slack), pos_d, vel_d,
+            acc_d)
+
+    rebalance_if_needed()
+    records = []
+    while param["aexp"] < aexp_out[-1]:
+        param["nsteps"] = int(param["nsteps"]) + 1
+        dt = _advance_time(param, tables, aexp_out, t_out,
+                           max_abs_acc, max_abs_vel)
+        dyn = solver_mod.compute_dynamics(param)
+        save_pk = pk_mode == "yes" or (
+            pk_mode == "z_out" and param["write_snapshot"]
+        )
+        t_step0 = perf_counter()
+        step_bound = (
+            max_abs_vel * dt + 0.5 * max_abs_acc * dt * dt
+        ) * cfg.ncells_1d
+        presorted = (
+            _drift_level(cum_drift + step_bound, max_drift) if lazy else 0
+        )
+        pos_d, vel_d, acc_d, phi_d, u_d, ts_d, pk, diag = step_fn(
+            save_pk, presorted
+        )(pos_d, vel_d, acc_d, phi_d, u_d, ts_d, dyn, dt)
+        if presorted:
+            cum_drift += step_bound
+            logging.info("lazy re-binning: slab sort skipped "
+                         "(drift bound %.3f cells, window %d)",
+                         cum_drift, presorted)
+        else:
+            cum_drift = 0.0
+        max_abs_acc, max_abs_vel = _finish_step(
+            param, cfg, records, t_step0, presorted, diag,
+            "slab lazy re-binning drift-bound violation" if presorted
+            else "slab particle capacity overflow", save_pk, pk)
+        if not presorted:
+            # the shards' counts change by migration only: on sorted steps
+            rebalance_if_needed()
+        if param["write_snapshot"]:
+            pos_np, vel_np = slab.gather_particles(pos_d, vel_d)
             iostream.write_snapshot_particles(pos_np, vel_np, param)
             param["i_snap"] = int(param["i_snap"]) + 1
         logging.warning(

@@ -59,10 +59,11 @@ def _k2_safe(n: int, device) -> torch.Tensor:
     return k2
 
 
-def _sinc_weight(n: int, device) -> torch.Tensor:
-    """Product of per-axis sinc mass-assignment window functions."""
+def _sinc_weight(n: int, device, ks=None) -> torch.Tensor:
+    """Product of per-axis sinc mass-assignment window functions (over the
+    wavenumbers ``ks`` when given: a pencil's)."""
     h = 1.0 / n
-    kx, ky, kz = _wavenumbers(n, device)
+    kx, ky, kz = ks if ks is not None else _wavenumbers(n, device)
     return torch.sinc(kx * h) * torch.sinc(ky * h) * torch.sinc(kz * h)
 
 
@@ -187,13 +188,19 @@ _PK_CHUNK = 512
 _PK_BINS: dict = {}
 
 
-def _pk_bins(n: int, device) -> _PkBins:
+def _pk_bins(n: int, device, y0: int = 0, ny: int | None = None) -> _PkBins:
     """The binning of :func:`power_spectrum` for grid size n, made on the
-    host once per (n, device)."""
-    key = (n, str(device))
+    host once per (n, device); with ``y0`` and ``ny`` that of the pencil
+    (n, ny, n//2+1) holding the y rows from ``y0`` on (the slab mode's
+    layout; ``k`` is then the pencil's sum of |k| per bin, float64, and
+    ``nmodes`` its own count, for the shards' sums to be added)."""
+    pencil = ny is not None
+    key = (n, str(device), y0, ny)
     if key in _PK_BINS:
         return _PK_BINS[key]
     kx, ky, kz = _wavenumbers(n, "cpu")
+    if pencil:
+        ky = ky[:, y0:y0 + ny]
     k_norm = torch.sqrt(kx * kx + ky * ky + kz * kz).reshape(-1).numpy()
     k_index = (k_norm + np.float32(0.5)).astype(np.int64)
     kmax = int(2 * (n // 2) / 3)
@@ -207,13 +214,15 @@ def _pk_bins(n: int, device) -> _PkBins:
     bin_start = np.concatenate(([0], np.cumsum(counts)[:-1]))
     for c, s0, f0 in zip(counts, bin_start, first_chunk):
         slot_src[f0 * _PK_CHUNK: f0 * _PK_CHUNK + c] = order[s0: s0 + c]
-    chunk_of_bin = np.full((kmax - 1, int(chunks.max())), n_chunks, np.int64)
+    chunk_of_bin = np.full((kmax - 1, max(int(chunks.max()), 1)), n_chunks,
+                           np.int64)
     for b, (c, f0) in enumerate(zip(chunks, first_chunk)):
         chunk_of_bin[b, :c] = np.arange(f0, f0 + c)
     bins = _PkBins(torch.as_tensor(slot_src), torch.as_tensor(chunk_of_bin),
                    None, torch.as_tensor(counts.astype(np.float32)))
     ksum = _binned_sum(torch.as_tensor(k_norm), bins)
-    bins = bins._replace(k=(ksum / bins.nmodes.double()).to(F32))
+    bins = bins._replace(
+        k=ksum if pencil else (ksum / bins.nmodes.double()).to(F32))
     bins = _PkBins(*(t.to(device) for t in bins))
     _PK_BINS[key] = bins
     return bins

@@ -126,14 +126,12 @@ def gather_vec(grid: torch.Tensor, position: torch.Tensor,
 # Gradient stencils
 # ---------------------------------------------------------------------------
 
-def _axis_diff(a: torch.Tensor, axis: int, order: int) -> torch.Tensor:
-    n = a.shape[0]
-
-    def r(shift):
-        return torch.roll(a, shift, dims=axis)
-
+def stencil_diff(r, n: int, order: int) -> torch.Tensor:
+    """The order's difference stencil along one axis of an n-cell grid;
+    ``r(shift)`` is the field rolled by ``shift`` cells along that axis
+    (``torch.roll``'s sign: r(-1)[i] is cell i + 1)."""
     if order == 2:
-        return float(n) * (r(-1) - a)
+        return float(n) * (r(-1) - r(0))
     if order == 3:
         return float(np.float32(0.5 * n)) * (r(-1) - r(1))
     if order == 5:
@@ -147,6 +145,12 @@ def _axis_diff(a: torch.Tensor, axis: int, order: int) -> torch.Tensor:
     raise NotImplementedError(
         f"gradient stencil order {order}, should be 2, 3, 5 or 7"
     )
+
+
+def _axis_diff(a: torch.Tensor, axis: int, order: int) -> torch.Tensor:
+    return stencil_diff(
+        lambda shift: torch.roll(a, shift, dims=axis) if shift else a,
+        a.shape[0], order)
 
 
 def derivative(a: torch.Tensor, order: int,

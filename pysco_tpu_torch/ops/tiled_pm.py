@@ -44,9 +44,9 @@ SENTINEL = 2.0  # tail-column x position
 SENTINEL_MIN = 1.5
 _WIDTH = {"ngp": 1, "cic": 2, "tsc": 3}
 
-# kernel launches by the CUDA wrappers (one per wrapper call); the CPU
-# twins do not count
-LAUNCHES = {"deposit": 0, "gather": 0}
+# kernel launches by the CUDA wrappers (one per wrapper call), the slab call
+# forms under their own names; the CPU twins do not count
+LAUNCHES = {"deposit": 0, "gather": 0, "deposit_slab": 0, "gather_slab": 0}
 
 # dynamic shared memory a block may opt into on Hopper (H100/H200)
 _SMEM_LIMIT = 232448
@@ -119,6 +119,7 @@ class Geometry(NamedTuple):
     nbz: int
     zbs: int
     ntiles: int
+    n_planes: int  # local x extent: the grid's on one device, a slab's else
 
     @property
     def wz(self) -> int:
@@ -128,10 +129,10 @@ class Geometry(NamedTuple):
 
     def padded_shape(self, m: int):
         """Shape of the grid the windows are added into, before the fold:
-        index i holds grid index (i - drift) along x and y (and z when
-        z-blocked)."""
+        index i holds grid index (i - drift) along y (and z when
+        z-blocked) and plane (plane0 + i - drift) along x."""
         gz = m if self.nbz == 1 else m + self.wz_pad - self.zbs
-        return (m + self.wx - 1, m + self.wy_pad - YB, gz)
+        return (self.n_planes + self.wx - 1, m + self.wy_pad - YB, gz)
 
     @property
     def live_window(self):
@@ -145,11 +146,16 @@ class Geometry(NamedTuple):
 
 
 def _geometry(ncells_1d: int, scheme: str, drift: int = 0,
-              zbs: int | None = None) -> Geometry:
-    """Tile and window geometry (``pallas_pm._geometry``, single device)."""
+              zbs: int | None = None,
+              n_planes: int | None = None) -> Geometry:
+    """Tile and window geometry (``pallas_pm._geometry``). ``n_planes`` is
+    the local x extent: the whole grid's on a single device (the default),
+    the slab's height under sharding."""
     m = ncells_1d
     if m % YB:
         raise ValueError(f"ncells_1d={m} must be a multiple of {YB}")
+    if n_planes is None:
+        n_planes = m
     w = _WIDTH[scheme]
     zbs = _zb_size(m, zbs)
     nbz = m // zbs
@@ -160,14 +166,18 @@ def _geometry(ncells_1d: int, scheme: str, drift: int = 0,
     return Geometry(
         w=w, wx=w + 2 * drift, wy_pad=_round_up(YB + w - 1 + 2 * drift, 8),
         wz_pad=wz_pad, nby=m // YB, nbz=nbz, zbs=zbs,
-        ntiles=m * (m // YB) * nbz,
+        ntiles=n_planes * (m // YB) * nbz, n_planes=n_planes,
     )
 
 
-def n_tiles(ncells_1d: int, zbs: int | None = None) -> int:
-    """Tile count (``tile_starts`` has n_tiles + 1 entries)."""
+def n_tiles(ncells_1d: int, zbs: int | None = None,
+            n_planes: int | None = None) -> int:
+    """Tile count of a grid, or of a slab of ``n_planes`` x-planes
+    (``tile_starts`` has n_tiles + 1 entries)."""
     zbs = _zb_size(ncells_1d, zbs)
-    return ncells_1d * (ncells_1d // YB) * (ncells_1d // zbs)
+    if n_planes is None:
+        n_planes = ncells_1d
+    return n_planes * (ncells_1d // YB) * (ncells_1d // zbs)
 
 
 def padded_cols(npart: int) -> int:
@@ -203,34 +213,42 @@ def to_columns(position: torch.Tensor, velocity: torch.Tensor, npart: int):
 # ---------------------------------------------------------------------------
 
 def tile_keys(position: torch.Tensor, ncells_1d: int, scheme: str,
-              zbs: int | None = None) -> torch.Tensor:
+              zbs: int | None = None, plane0: int = 0,
+              n_planes: int | None = None) -> torch.Tensor:
     """(N_up,) int64 tile id per column; sentinel columns key past the
-    last tile."""
+    last tile. Under slab sharding ``plane0`` and ``n_planes`` select the
+    local x-plane range: the tile id is slab-local, and a particle whose
+    base plane lies outside the slab keys past the end too, so a foreign
+    particle is dropped by the sort, not misbinned."""
     m = ncells_1d
     scheme = scheme.casefold()
-    g = _geometry(m, scheme, 0, zbs)
-    px = _base_axis(scheme, position[0] * float(m)) % m
+    g = _geometry(m, scheme, 0, zbs, n_planes)
+    p_loc = _base_axis(scheme, position[0] * float(m)) % m - int(plane0)
     py = (_base_axis(scheme, position[1] * float(m)) % m) // YB
-    key = px * g.nby + py
+    key = p_loc * g.nby + py
     if g.nbz > 1:
         pz = (_base_axis(scheme, position[2] * float(m)) % m) // g.zbs
         key = key * g.nbz + pz
-    return torch.where(position[0] >= SENTINEL_MIN,
-                       torch.full_like(key, g.ntiles), key)
+    bad = ((position[0] >= SENTINEL_MIN) | (p_loc < 0)
+           | (p_loc >= g.n_planes))
+    return torch.where(bad, torch.full_like(key, g.ntiles), key)
 
 
 def sort_particles(position: torch.Tensor, velocity: torch.Tensor,
-                   ncells_1d: int, scheme: str, zbs: int | None = None):
+                   ncells_1d: int, scheme: str, zbs: int | None = None,
+                   plane0: int = 0, n_planes: int | None = None):
     """Tile-sort the column state; returns (pos, vel, tile_starts).
 
     One stable sort of the tile key, then one permutation of each state
     array (row 3 stays zero). ``tile_starts`` (int32, ntiles + 1) is the
     same as the JAX package's; the order within a tile may differ, since
-    ``lax.sort`` there is not stable.
+    ``lax.sort`` there is not stable. ``plane0`` and ``n_planes`` sort a
+    slab's columns into its own tiles (:func:`tile_keys`): sentinels and
+    foreign particles end up past ``tile_starts[-1]``.
     """
     scheme = scheme.casefold()
-    g = _geometry(ncells_1d, scheme, 0, zbs)
-    key = tile_keys(position, ncells_1d, scheme, zbs)
+    g = _geometry(ncells_1d, scheme, 0, zbs, n_planes)
+    key = tile_keys(position, ncells_1d, scheme, zbs, plane0, n_planes)
     skey, order = torch.sort(key, stable=True)
     tiles = torch.arange(g.ntiles + 1, dtype=skey.dtype, device=skey.device)
     starts = torch.searchsorted(skey, tiles, side="left").to(I32)
@@ -254,7 +272,8 @@ def _window_offset(base: torch.Tensor, origin, m: int, drift: int):
 
 def drift_violations(position_sorted: torch.Tensor, tile_starts: torch.Tensor,
                      ncells_1d: int, scheme: str, drift: int,
-                     zbs: int | None = None) -> torch.Tensor:
+                     zbs: int | None = None, plane0: int = 0,
+                     n_planes: int | None = None) -> torch.Tensor:
     """Count particles outside their stale tile's widened window.
 
     A particle whose base moved past the window deposits (part of) its
@@ -262,14 +281,15 @@ def drift_violations(position_sorted: torch.Tensor, tile_starts: torch.Tensor,
     host-side CFL bound prevents it and this counter detects a broken
     bound. Same envelope as ``pallas_pm.drift_violations``: x offset in
     [-drift, drift], y offset within the 8-rounded window, z within the
-    z-blocked window.
+    z-blocked window. On a slab the tile's plane is ``plane0`` plus its
+    slab-local one.
     """
     m = ncells_1d
     scheme = scheme.casefold()
-    g = _geometry(m, scheme, drift, zbs)
+    g = _geometry(m, scheme, drift, zbs, n_planes)
     n_up = position_sorted.shape[1]
     tile = _tile_of_columns(tile_starts, n_up).to(I64)
-    plane = tile // (g.nby * g.nbz)
+    plane = tile // (g.nby * g.nbz) + int(plane0)
     yb = (tile // g.nbz) % g.nby
     bx = _base_axis(scheme, position_sorted[0] * float(m)) % m
     by = _base_axis(scheme, position_sorted[1] * float(m)) % m
@@ -305,18 +325,9 @@ def _fold_axis(arr: torch.Tensor, axis: int, m: int,
     return head
 
 
-def _fold_padded(gp: torch.Tensor, m: int, drift: int,
-                 g: Geometry) -> torch.Tensor:
-    """Padded window sums -> (m, m, m) grid, folding y, z, then x (the
-    JAX package's order)."""
-    gp = _fold_axis(gp, 1, m, lead=drift)
-    if g.nbz > 1:
-        gp = _fold_axis(gp, 2, m, lead=drift)
-    return _fold_axis(gp, 0, m, lead=drift)
-
-
 def _padded_sums_plain(position_sorted, tile_starts, m: int, scheme: str,
-                       drift: int, g: Geometry) -> torch.Tensor:
+                       drift: int, g: Geometry,
+                       plane0: int = 0) -> torch.Tensor:
     """Twin of the deposit kernel before the fold: every particle's
     weights added into its tile's window cells of the padded grid, with
     the kernel's window masking, by ``index_add_``."""
@@ -328,7 +339,7 @@ def _padded_sums_plain(position_sorted, tile_starts, m: int, scheme: str,
     real = (position_sorted[0] < SENTINEL_MIN) & (tile < g.ntiles)
     cols = torch.nonzero(real).squeeze(1)
     t = tile[cols].to(I64)
-    plane = t // (g.nby * g.nbz)
+    plane = t // (g.nby * g.nbz)  # slab-local
     yb = (t // g.nbz) % g.nby
     zb = t % g.nbz
     xs = position_sorted[:3, cols] * float(m)
@@ -337,7 +348,7 @@ def _padded_sums_plain(position_sorted, tile_starts, m: int, scheme: str,
     wy = _axis_weights(scheme, xs[1], by)
     wz = _axis_weights(scheme, xs[2], bz)
     if drift:
-        dx = _window_offset(bx, plane, m, drift)
+        dx = _window_offset(bx, plane + int(plane0), m, drift)
         yl = _window_offset(by, yb * YB, m, drift)
     else:
         dx = torch.zeros_like(bx)  # fresh sort: the base plane is the tile's
@@ -375,11 +386,12 @@ def _kernels():
 
     lib = cuda_build.load()
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pysco_deposit.argtypes = [P, L, P, P, I, I, I, I, I, I, I, P]
+    lib.pysco_deposit.argtypes = [P, L, P, P, I, I, I, I, I, I, I, I, I, P]
     lib.pysco_deposit.restype = I
     lib.pysco_deposit_smem.argtypes = [I, I, I, I, I, I, I]
     lib.pysco_deposit_smem.restype = L
-    lib.pysco_gather.argtypes = [P, I, P, L, P, I, P, I, I, I, I, I, I, P]
+    lib.pysco_gather.argtypes = [P, I, P, L, P, I, P, I, I, I, I, I, I, I, I,
+                                 I, P]
     lib.pysco_gather.restype = I
     lib.pysco_gather_smem.argtypes = [I, I, I, I, I, I]
     lib.pysco_gather_smem.restype = L
@@ -423,9 +435,10 @@ def _check_deposit_smem(g: Geometry, m: int, scheme: str, drift: int) -> None:
 
 
 def _padded_sums_cuda(position_sorted, tile_starts, m: int, scheme: str,
-                      drift: int, g: Geometry) -> torch.Tensor:
+                      drift: int, g: Geometry, plane0: int = 0,
+                      count: str = "deposit") -> torch.Tensor:
     """Launch the deposit kernel (csrc/deposit.cu) into a zeroed padded
-    grid."""
+    grid, counted under ``count``."""
     n_up = position_sorted.shape[1]
     _check_cuda("position_sorted", position_sorted, F32, (4, n_up))
     _check_cuda("tile_starts", tile_starts, I32, (g.ntiles + 1,))
@@ -437,56 +450,122 @@ def _padded_sums_cuda(position_sorted, tile_starts, m: int, scheme: str,
         err = _kernels().pysco_deposit(
             position_sorted.data_ptr(), n_up, tile_starts.data_ptr(),
             gp.data_ptr(), m, g.w, drift, g.wy_pad, g.wz, g.zbs, g.nbz,
-            stream,
+            g.n_planes, int(plane0), stream,
         )
     _raise_on(err, "deposit")
-    LAUNCHES["deposit"] += 1
+    LAUNCHES[count] += 1
     return gp
+
+
+def _check_slab(m: int, g: Geometry, drift: int, plane0: int) -> None:
+    """A slab lies inside the grid and is at least as tall as the
+    drift-widened window reaches beyond a plane (``w - 1 + drift``), so a
+    spill plane goes to a direct neighbour."""
+    if not (0 <= plane0 and plane0 + g.n_planes <= m):
+        raise ValueError(f"slab planes [{plane0}, {plane0 + g.n_planes}) "
+                         f"lie outside the grid of {m}")
+    if g.n_planes < g.w - 1 + drift:
+        raise ValueError(f"a slab of {g.n_planes} planes is thinner than "
+                         f"the window's reach w - 1 + drift = "
+                         f"{g.w - 1 + drift}")
+
+
+def _fold_yz(gp: torch.Tensor, m: int, drift: int,
+             g: Geometry) -> torch.Tensor:
+    """Fold the y pads and, when z-blocked, the z pads of the padded window
+    sums (the JAX package's order: y, then z; x last, by the caller)."""
+    gp = _fold_axis(gp, 1, m, lead=drift)
+    if g.nbz > 1:
+        gp = _fold_axis(gp, 2, m, lead=drift)
+    return gp
+
+
+def deposit_slab_plain(position_sorted: torch.Tensor,
+                       tile_starts: torch.Tensor, ncells_1d: int, scheme: str,
+                       drift: int = 0, zbs: int | None = None,
+                       plane0: int = 0,
+                       n_planes: int | None = None) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`deposit_slab` (any device)."""
+    scheme = scheme.casefold()
+    g = _geometry(ncells_1d, scheme, drift, zbs, n_planes)
+    _check_slab(ncells_1d, g, drift, plane0)
+    gp = _padded_sums_plain(position_sorted, tile_starts, ncells_1d, scheme,
+                            drift, g, plane0)
+    return _fold_yz(gp, ncells_1d, drift, g)
+
+
+def _deposit_slab(count: str, position_sorted, tile_starts, ncells_1d: int,
+                  scheme: str, drift: int, zbs, plane0: int, n_planes):
+    """The slab deposit behind both public forms: the twin for CPU tensors,
+    the kernel (counted under ``count``) for CUDA ones."""
+    dev = position_sorted.device.type
+    if dev == "cpu":
+        return deposit_slab_plain(position_sorted, tile_starts, ncells_1d,
+                                  scheme, drift, zbs, plane0, n_planes)
+    if dev != "cuda":
+        raise ValueError(f"deposit: no kernel for device {dev!r}")
+    scheme = scheme.casefold()
+    g = _geometry(ncells_1d, scheme, drift, zbs, n_planes)
+    _check_slab(ncells_1d, g, drift, plane0)
+    gp = _padded_sums_cuda(position_sorted, tile_starts, ncells_1d, scheme,
+                           drift, g, plane0, count)
+    return _fold_yz(gp, ncells_1d, drift, g)
+
+
+def deposit_slab(position_sorted: torch.Tensor, tile_starts: torch.Tensor,
+                 ncells_1d: int, scheme: str, drift: int = 0,
+                 zbs: int | None = None, plane0: int = 0,
+                 n_planes: int | None = None) -> torch.Tensor:
+    """Deposit tile-sorted column particles onto the local x-slab of
+    ``n_planes`` planes from global plane ``plane0`` on
+    (``pallas_pm.deposit_slab``).
+
+    Returns the y-folded, z-folded slab (n_planes + w - 1 + 2 drift, M, M)
+    whose x index i holds grid plane (plane0 + i - drift): the leading
+    ``drift`` planes spill onto the left neighbour and the trailing
+    w - 1 + drift onto the right (``parallel/slab.add_spill``; the periodic
+    wrap on a single device, which :func:`deposit` folds). ``tile_starts``
+    holds the slab's own tiles (:func:`sort_particles` with the same
+    ``plane0`` and ``n_planes``).
+    """
+    return _deposit_slab("deposit_slab", position_sorted, tile_starts,
+                         ncells_1d, scheme, drift, zbs, plane0, n_planes)
 
 
 def deposit_plain(position_sorted: torch.Tensor, tile_starts: torch.Tensor,
                   ncells_1d: int, scheme: str, drift: int = 0,
                   zbs: int | None = None) -> torch.Tensor:
     """Plain PyTorch twin of :func:`deposit` (any device)."""
-    scheme = scheme.casefold()
-    g = _geometry(ncells_1d, scheme, drift, zbs)
-    gp = _padded_sums_plain(position_sorted, tile_starts, ncells_1d, scheme,
-                            drift, g)
-    return _fold_padded(gp, ncells_1d, drift, g)
+    return _fold_axis(
+        deposit_slab_plain(position_sorted, tile_starts, ncells_1d, scheme,
+                           drift, zbs), 0, ncells_1d, lead=drift)
 
 
 def deposit(position_sorted: torch.Tensor, tile_starts: torch.Tensor,
             ncells_1d: int, scheme: str, drift: int = 0,
             zbs: int | None = None) -> torch.Tensor:
     """Deposit tile-sorted column particles; returns the (M, M, M) counts
-    grid. ``drift`` widens the windows for lazy re-binning (stale sort);
-    ``zbs`` overrides the z-block size (tests only)."""
-    dev = position_sorted.device.type
-    if dev == "cpu":
-        return deposit_plain(position_sorted, tile_starts, ncells_1d, scheme,
-                             drift, zbs)
-    if dev != "cuda":
-        raise ValueError(f"deposit: no kernel for device {dev!r}")
-    scheme = scheme.casefold()
-    g = _geometry(ncells_1d, scheme, drift, zbs)
-    gp = _padded_sums_cuda(position_sorted, tile_starts, ncells_1d, scheme,
-                           drift, g)
-    return _fold_padded(gp, ncells_1d, drift, g)
+    grid: the slab form over the whole grid, its x spill folded
+    periodically. ``drift`` widens the windows for lazy re-binning (stale
+    sort); ``zbs`` overrides the z-block size (tests only)."""
+    return _fold_axis(
+        _deposit_slab("deposit", position_sorted, tile_starts, ncells_1d,
+                      scheme, drift, zbs, 0, None), 0, ncells_1d, lead=drift)
 
 
 # ---------------------------------------------------------------------------
 # Gather
 # ---------------------------------------------------------------------------
 
-def gather_vec_cl_plain(field_cl: torch.Tensor, position_sorted: torch.Tensor,
-                        tile_starts: torch.Tensor, scheme: str,
-                        drift: int = 0) -> torch.Tensor:
-    """Plain PyTorch twin of :func:`gather_vec_cl` (any device): the same
-    w^3-point sum in the kernel's order, by advanced indexing."""
-    del drift  # the full periodic field is read: no window to widen
-    scheme = scheme.casefold()
+def _gather_plain(field_cl: torch.Tensor, position_sorted: torch.Tensor,
+                  tile_starts: torch.Tensor, scheme: str,
+                  x_cell) -> torch.Tensor:
+    """The w^3-point sum in the kernel's order, by advanced indexing.
+    ``x_cell(base_x, a)`` gives the field's x index of support cell a and
+    whether the field holds it (None: always)."""
     w = _WIDTH[scheme]
-    ncomp, m = field_cl.shape[0], field_cl.shape[1]
+    ncomp, m = field_cl.shape[0], field_cl.shape[-1]
+    nx = field_cl.shape[1]
     n_up = position_sorted.shape[1]
     col = torch.arange(n_up, device=position_sorted.device)
     valid = ((col >= tile_starts[0]) & (col < tile_starts[-1])
@@ -499,16 +578,51 @@ def gather_vec_cl_plain(field_cl: torch.Tensor, position_sorted: torch.Tensor,
     acc = torch.zeros((ncomp, cols.shape[0]), dtype=F32,
                       device=field_cl.device)
     for a in range(w):
-        ix = (base[0] + a) % m
+        ix, ok = x_cell(base[0], a)
+        if ok is not None:
+            ix = torch.clamp(ix, 0, nx - 1)
         for oy in range(w):
             iy = (base[1] + oy) % m
             wxy = wts[0][a] * wts[1][oy]
             for oz in range(w):
                 iz = (base[2] + oz) % m
-                acc = acc + flat[:, (ix * m + iy) * m + iz] * (wxy * wts[2][oz])
+                vals = flat[:, (ix * m + iy) * m + iz]
+                if ok is not None:
+                    vals = torch.where(ok, vals, torch.zeros_like(vals))
+                acc = acc + vals * (wxy * wts[2][oz])
     out = torch.zeros((4, n_up), dtype=F32, device=field_cl.device)
     out[:ncomp, cols] = acc
     return out
+
+
+def gather_vec_cl_plain(field_cl: torch.Tensor, position_sorted: torch.Tensor,
+                        tile_starts: torch.Tensor, scheme: str,
+                        drift: int = 0) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`gather_vec_cl` (any device)."""
+    del drift  # the full periodic field is read: no window to widen
+    m = field_cl.shape[1]
+    return _gather_plain(field_cl, position_sorted, tile_starts,
+                         scheme.casefold(),
+                         lambda bx, a: ((bx + a) % m, None))
+
+
+def gather_vec_slab_plain(field_ext_cl: torch.Tensor,
+                          position_sorted: torch.Tensor,
+                          tile_starts: torch.Tensor, scheme: str,
+                          drift: int = 0, plane0: int = 0) -> torch.Tensor:
+    """Plain PyTorch twin of :func:`gather_vec_slab` (any device): support
+    cell a of a particle reads extended plane
+    ``offset(base_x, plane0) + drift + a`` (the offset mapped to
+    [-drift, M - drift)), and counts 0 where the extended field ends."""
+    m = field_ext_cl.shape[-1]
+    nx = field_ext_cl.shape[1]
+
+    def x_cell(bx, a):
+        ix = _window_offset(bx % m, int(plane0), m, drift) + a
+        return ix, ix < nx
+
+    return _gather_plain(field_ext_cl, position_sorted, tile_starts,
+                         scheme.casefold(), x_cell)
 
 
 def _gather_smem(g: Geometry, ncomp: int) -> int:
@@ -544,10 +658,12 @@ def _gather_stage(g: Geometry, ncomp: int, m: int, scheme: str,
 
 
 def _gather_cuda(field_cl, position_sorted, tile_starts, drift: int,
-                 g: Geometry, ncs: int) -> torch.Tensor:
+                 g: Geometry, ncs: int, plane0: int = 0,
+                 slab: bool = False) -> torch.Tensor:
     """Launch the gather kernel (csrc/gather.cu), ``ncs`` (1 or all)
-    components staged a pass."""
-    ncomp, m = field_cl.shape[0], field_cl.shape[1]
+    components staged a pass, over the periodic field or (``slab``) the
+    x-extended field of the slab that starts at global plane ``plane0``."""
+    ncomp, m = field_cl.shape[0], field_cl.shape[-1]
     n_up = position_sorted.shape[1]
     out = torch.empty((4, n_up), dtype=F32, device=field_cl.device)
     with torch.cuda.device(out.device):
@@ -555,9 +671,39 @@ def _gather_cuda(field_cl, position_sorted, tile_starts, drift: int,
         err = _kernels().pysco_gather(
             field_cl.data_ptr(), ncomp, position_sorted.data_ptr(), n_up,
             tile_starts.data_ptr(), g.ntiles, out.data_ptr(), m, g.w, drift,
-            g.zbs, g.nbz, ncs, stream,
+            g.zbs, g.nbz, ncs, g.n_planes, int(plane0), int(slab), stream,
         )
     _raise_on(err, "gather")
+    return out
+
+
+def _gather(name: str, field_cl, position_sorted, tile_starts, scheme: str,
+            drift: int, g: Geometry, plane0: int, slab: bool, twin):
+    """Checks and dispatch shared by the two gather forms: the twin for a
+    CPU field, the kernel for a CUDA one."""
+    ncomp, m = field_cl.shape[0], field_cl.shape[-1]
+    if tuple(tile_starts.shape) != (g.ntiles + 1,):
+        raise ValueError(f"tile_starts: expected shape {(g.ntiles + 1,)} "
+                         f"for m={m}, zbs={g.zbs}, n_planes={g.n_planes}; "
+                         f"got {tuple(tile_starts.shape)}")
+    dev = field_cl.device.type
+    if dev == "cpu":
+        return twin()
+    if dev != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev!r}")
+    n_up = position_sorted.shape[1]
+    if not 1 <= ncomp <= 4:
+        raise ValueError(f"{name}: 1 to 4 components, got {ncomp}")
+    nx = g.n_planes + g.wx - 1 if slab else m
+    _check_cuda("field_cl", field_cl, F32, (ncomp, nx, m, m))
+    _check_cuda("position_sorted", position_sorted, F32, (4, n_up))
+    _check_cuda("tile_starts", tile_starts, I32, (g.ntiles + 1,))
+    if field_cl.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel needs a 16-byte aligned field")
+    ncs = _gather_stage(g, ncomp, m, scheme, drift)
+    out = _gather_cuda(field_cl, position_sorted, tile_starts, drift, g, ncs,
+                       plane0, slab)
+    LAUNCHES["gather_slab" if slab else "gather"] += 1
     return out
 
 
@@ -578,28 +724,42 @@ def gather_vec_cl(field_cl: torch.Tensor, position_sorted: torch.Tensor,
     16-byte aligned (the kernel copies it in 16-byte groups).
     """
     scheme = scheme.casefold()
-    ncomp, m = field_cl.shape[0], field_cl.shape[1]
-    g = _geometry(m, scheme, drift, zbs)
-    if tuple(tile_starts.shape) != (g.ntiles + 1,):
-        raise ValueError(f"tile_starts: expected shape {(g.ntiles + 1,)} "
-                         f"for m={m}, zbs={g.zbs}; got "
-                         f"{tuple(tile_starts.shape)}")
-    dev = field_cl.device.type
-    if dev == "cpu":
-        return gather_vec_cl_plain(field_cl, position_sorted, tile_starts,
-                                   scheme, drift)
-    if dev != "cuda":
-        raise ValueError(f"gather_vec_cl: no kernel for device {dev!r}")
-    n_up = position_sorted.shape[1]
-    if not 1 <= ncomp <= 4:
-        raise ValueError(f"gather_vec_cl: 1 to 4 components, got {ncomp}")
-    _check_cuda("field_cl", field_cl, F32, (ncomp, m, m, m))
-    _check_cuda("position_sorted", position_sorted, F32, (4, n_up))
-    _check_cuda("tile_starts", tile_starts, I32, (g.ntiles + 1,))
-    if field_cl.data_ptr() % 16:
-        raise ValueError("gather_vec_cl: the kernel needs a 16-byte aligned "
-                         "field")
-    ncs = _gather_stage(g, ncomp, m, scheme, drift)
-    out = _gather_cuda(field_cl, position_sorted, tile_starts, drift, g, ncs)
-    LAUNCHES["gather"] += 1
-    return out
+    g = _geometry(field_cl.shape[1], scheme, drift, zbs)
+    return _gather(
+        "gather_vec_cl", field_cl, position_sorted, tile_starts, scheme,
+        drift, g, 0, False,
+        lambda: gather_vec_cl_plain(field_cl, position_sorted, tile_starts,
+                                    scheme, drift))
+
+
+def gather_vec_slab(field_ext_cl: torch.Tensor,
+                    position_sorted: torch.Tensor, tile_starts: torch.Tensor,
+                    scheme: str, drift: int = 0, zbs: int | None = None,
+                    plane0: int = 0) -> torch.Tensor:
+    """Interpolate a slab's x-extended field at its tile-sorted columns
+    (``pallas_pm.gather_vec_slab``).
+
+    ``field_ext_cl`` is component-leading, (C, n_planes + w - 1 + 2 drift,
+    M, M), where the JAX function takes the components last: the slab's
+    planes plus ``drift`` halo planes of the left neighbour and
+    w - 1 + drift of the right, so extended index i holds grid plane
+    plane0 + i - drift; y and z are the full periodic axes. Returns
+    (4, N_up) with rows C..3 and the columns outside every tile zero.
+    ``tile_starts`` holds the slab's own tiles.
+
+    The result is the twin's: a support cell beyond the extended field (the
+    particle broke its drift bound in x; :func:`drift_violations` counts it
+    and the run aborts) counts 0, as in the JAX kernel; past its window in
+    y or z a particle is still interpolated at its position. On the card
+    the field must be 16-byte aligned.
+    """
+    scheme = scheme.casefold()
+    m = field_ext_cl.shape[-1]
+    n_planes = field_ext_cl.shape[1] - (_WIDTH[scheme] - 1 + 2 * drift)
+    g = _geometry(m, scheme, drift, zbs, n_planes)
+    _check_slab(m, g, drift, plane0)
+    return _gather(
+        "gather_vec_slab", field_ext_cl, position_sorted, tile_starts,
+        scheme, drift, g, plane0, True,
+        lambda: gather_vec_slab_plain(field_ext_cl, position_sorted,
+                                      tile_starts, scheme, drift, plane0))

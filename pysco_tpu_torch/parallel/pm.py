@@ -1,0 +1,156 @@
+"""Replicated-grid PM step: particles sharded over a mesh, fields
+replicated (PyTorch port of ``pysco_tpu/parallel/pm.py``).
+
+- the particles are sharded over the mesh (:mod:`.mesh`): the tiled
+  engine's columns (4, N_up) by column blocks, the scatter engine's rows
+  (N, 3) by row blocks;
+- every shard sorts and deposits its particles into a full grid of its own,
+  and the grids are summed in shard order (one ``psum``);
+- the field solve is the single-device one (``solver._solve_fields``), run
+  on identical data on every device of the mesh, so every theory and solver
+  of the single mode runs here; shards that share a device share its solve;
+- the gather and the kicks and drift are local to the shard.
+
+The particle work scales with the shards while the grid work is replicated:
+the mode for a grid that fits every card and a run that the particles
+dominate. ``parallel_mode = slab`` shards the grids too.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import solver as solver_mod
+from ..integrate import StepDiagnostics, kick_drift
+from ..ops import mesh as mesh_ops
+from ..ops import tiled_pm
+from ..solver import DynScalars, SolverConfig
+from . import mesh as pmesh
+from .mesh import Mesh
+
+
+def _sharded_pm(cfg: SolverConfig, mesh: Mesh, first_call: bool,
+                save_pk: bool, position: list, velocity: list, potential: list,
+                u: list, dyn: DynScalars):
+    """Deposit each shard -> psum -> replicated solve -> local gather.
+    Returns (position, velocity, acceleration, potential, u, pk) with pk
+    on shard 0's device."""
+    n = cfg.ncells_1d
+    tiled = cfg.particle_engine == "pallas"
+    scheme = cfg.mass_scheme
+    if tiled:
+        srt = [tiled_pm.sort_particles(p, v, n, scheme)
+               for p, v in zip(position, velocity)]
+        position = [s[0] for s in srt]
+        velocity = [s[1] for s in srt]
+        tstarts = [s[2] for s in srt]
+        grids = [tiled_pm.deposit(p, t, n, scheme)
+                 for p, t in zip(position, tstarts)]
+    else:
+        grids = [mesh_ops.deposit(p, n, scheme) for p in position]
+    density = pmesh.psum(grids, mesh)
+    del grids
+    # one solve per device of the mesh, on identical data; the shards of a
+    # device share it
+    solved = {}
+    for r, dev in enumerate(mesh):
+        if dev not in solved:
+            solved[dev] = solver_mod._solve_fields(
+                cfg, first_call, save_pk,
+                solver_mod._normalise(cfg, density[r]), potential[r], u[r],
+                dyn, leading=tiled)
+    del density
+    force = [solved[dev][0] for dev in mesh]
+    potential = [solved[dev][1] for dev in mesh]
+    u = [solved[dev][2] for dev in mesh]
+    pk = solved[mesh[0]][3]
+    if tiled:
+        acc = [tiled_pm.gather_vec_cl(f, p, t, scheme)
+               for f, p, t in zip(force, position, tstarts)]
+    else:
+        acc = [mesh_ops.gather_vec(f, p, scheme)
+               for f, p in zip(force, position)]
+    return position, velocity, acc, potential, u, pk
+
+
+def check_shardable(cfg: SolverConfig, n_dev: int) -> None:
+    """The tiled engine's column state must split into Q-aligned shards,
+    the scatter engine's rows evenly."""
+    if cfg.particle_engine == "pallas":
+        if tiled_pm.padded_cols(cfg.npart) % (n_dev * tiled_pm.Q):
+            raise ValueError(
+                f"npart={cfg.npart}: the column state must split into "
+                f"Q={tiled_pm.Q}-aligned shards on {n_dev} devices; pick "
+                "npart a multiple of Q * n_devices or use "
+                "particle_engine='scatter'"
+            )
+    elif cfg.npart % n_dev:
+        raise ValueError(
+            f"npart={cfg.npart} must split evenly over {n_dev} devices for "
+            "parallel_mode='replicated' with a row-layout engine"
+        )
+
+
+def make_sharded_step(cfg: SolverConfig, mesh: Mesh,
+                      integrator: str = "leapfrog", first_call: bool = False,
+                      save_pk: bool = False):
+    """Build the replicated-grid step: a plain function
+    ``fn(pos, vel, acc, phi, u, dyn, dt) -> (pos, vel, acc, phi, u, pk,
+    diag)`` over lists of per-shard tensors (``pk`` is None unless
+    ``save_pk``; the diagnostics are tensors on shard 0's device)."""
+    check_shardable(cfg, len(mesh))
+    if integrator not in ("leapfrog", "euler"):
+        raise NotImplementedError(
+            f"integrator {integrator!r}, must be 'leapfrog' or 'euler'")
+
+    def step(position, velocity, acceleration, potential, u, dyn, dt):
+        moved = [kick_drift(integrator, p, v, a, dt)
+                 for p, v, a in zip(position, velocity, acceleration)]
+        position = [m[0] for m in moved]
+        velocity = [m[1] for m in moved]
+        last_kick = moved[0][2]
+        position, velocity, acceleration, potential, u, pk = _sharded_pm(
+            cfg, mesh, first_call, save_pk, position, velocity, potential, u,
+            dyn)
+        if last_kick:
+            velocity = [v - a * last_kick
+                        for v, a in zip(velocity, acceleration)]
+        diag = StepDiagnostics(
+            max_abs_acc=pmesh.pmax(
+                [torch.max(torch.abs(a)) for a in acceleration], mesh)[0],
+            max_abs_vel=pmesh.pmax(
+                [torch.max(torch.abs(v)) for v in velocity], mesh)[0],
+            mean_additional=pmesh.pmean(
+                [torch.mean(x) for x in u], mesh)[0],
+            overflow=0,  # a fresh sort puts every particle in its window
+        )
+        return position, velocity, acceleration, potential, u, pk, diag
+
+    return step
+
+
+def shard_state(mesh: Mesh, position, velocity, acceleration, potential, u):
+    """Place a state (tensors or NumPy arrays) on the mesh: particles
+    sharded -- columns (4, N_up) along the column axis, rows (N, 3) along
+    the row axis -- and fields replicated, one copy per device."""
+    def t(a):
+        return torch.as_tensor(a).to(torch.float32)
+
+    position, velocity, acceleration = t(position), t(velocity), t(
+        acceleration)
+    columnar = position.ndim == 2 and position.shape[0] == 4
+    axis = 1 if columnar else 0
+    return (pmesh.scatter(position, mesh, axis),
+            pmesh.scatter(velocity, mesh, axis),
+            pmesh.scatter(acceleration, mesh, axis),
+            pmesh.replicate(t(potential), mesh),
+            pmesh.replicate(t(u), mesh))
+
+
+def gather_state(*arrays):
+    """Per-shard particle lists -> one tensor each on shard 0's device
+    (columns joined along the column axis, rows along the row axis)."""
+    def columnar(xs):
+        return xs[0].ndim == 2 and xs[0].shape[0] == 4
+
+    return tuple(pmesh.gather(xs, 1 if columnar(xs) else 0) for xs in arrays)

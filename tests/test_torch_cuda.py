@@ -58,18 +58,21 @@ def _state(m, n, scheme, drift, seed, device, zbs=None, xspan=1.0,
     return ps, ts
 
 
-def _edge_state(ps, ts, m, scheme, drift, zbs, seed):
+def _edge_state(ps, ts, m, scheme, drift, zbs, seed, plane0=0,
+                n_planes=None):
     """Every real column moved so that its base cell sits on an edge of its
     stale tile's window: x at -drift, 0 or +drift planes, y at -drift, the
     live window's last row (7 + drift) or the envelope's (wy_pad - w -
     drift), z likewise when z-blocked. Cells past the live window go
-    through the kernel's spill path."""
-    g = tiled_pm._geometry(m, scheme, drift, zbs)
+    through the kernel's spill path. ``plane0`` and ``n_planes``: the
+    tiles are a slab's."""
+    g = tiled_pm._geometry(m, scheme, drift, zbs, n_planes)
     rng = np.random.default_rng(seed)
     n_up = ps.shape[1]
     tile = tiled_pm._tile_of_columns(ts, n_up).cpu().numpy().astype(np.int64)
     real = (ps[0].cpu().numpy() < tiled_pm.SENTINEL_MIN) & (tile < g.ntiles)
-    plane, yb = tile // (g.nby * g.nbz), (tile // g.nbz) % g.nby
+    plane = tile // (g.nby * g.nbz) + plane0
+    yb = (tile // g.nbz) % g.nby
     sx = rng.choice([-drift, 0, drift], n_up)
     sy = rng.choice([-drift, 7 + drift, g.wy_pad - g.w - drift], n_up)
     if g.nbz > 1:
@@ -152,6 +155,159 @@ def test_zblocked_kernel_matches_twin(cuda, m, zbs, scheme, drift, case):
         got, tiled_pm.gather_vec_cl_plain(field, ps, ts, scheme, drift))
 
 
+def _slab_case(case, m, scheme, drift, cuda, zbs, plane0, n_planes, seed=1):
+    """(position_sorted, tile_starts) of the slab [plane0, plane0 +
+    n_planes): every particle of a clustered box sorted into the slab's
+    tiles (the strangers past the end, as after a migration), then drifted
+    within the bound ("clustered") or moved onto the edges of its window
+    ("edge") without a re-sort."""
+    rng = np.random.default_rng(seed)
+    n = 6000
+    pos = rng.random((n, 3), dtype=np.float32)
+    pos[: n // 2] = 0.2 + 0.25 * pos[: n // 2]
+    vel = rng.standard_normal((n, 3)).astype(np.float32)
+    pc, vc = tiled_pm.to_columns_host(pos, vel, n)
+    ps, _, ts = tiled_pm.sort_particles(
+        torch.as_tensor(pc, device=cuda), torch.as_tensor(vc, device=cuda),
+        m, scheme, zbs, plane0, n_planes)
+    assert 0 < int(ts[-1]) < n  # a slab's share, strangers past the end
+    if case == "edge":
+        ps = _edge_state(ps, ts, m, scheme, drift, zbs, seed + 1, plane0,
+                         n_planes)
+    elif drift:
+        delta = torch.as_tensor(((drift - 0.05) / m * rng.uniform(
+            -1, 1, (3, ps.shape[1]))).astype(np.float32), device=cuda)
+        real = ps[0] < tiled_pm.SENTINEL_MIN
+        ps = ps.clone()
+        ps[:3] = torch.where(real, periodic_wrap(ps[:3] + delta), ps[:3])
+    assert int(tiled_pm.drift_violations(ps, ts, m, scheme, drift, zbs,
+                                         plane0, n_planes)) == 0
+    return ps, ts
+
+
+def _thin(scheme, drift):
+    """The thinnest slab the step allows: w - 1 + drift planes."""
+    return max(tiled_pm._WIDTH[scheme] - 1 + drift, 1)
+
+
+@pytest.mark.parametrize("case", ["clustered", "edge"])
+@pytest.mark.parametrize("scheme", ["ngp", "cic", "tsc"])
+@pytest.mark.parametrize("drift", [0, 1, 2])
+@pytest.mark.parametrize("zbs,shape", [(None, "quarter"), (8, "quarter"),
+                                       (None, "thin"), (8, "thin")])
+def test_slab_kernels_match_twins(cuda, zbs, shape, drift, scheme, case):
+    """The slab call forms at plane0 != 0: the deposit within float32 ulps
+    of its twin and bitwise equal between two calls, the gather bitwise its
+    twin; a quarter of the grid and the thinnest slab allowed (thinner than
+    the window: the deposit's residue classes hold one plane or none),
+    z-blocked and not."""
+    m = 32
+    n_planes = m // 4 if shape == "quarter" else _thin(scheme, drift)
+    plane0 = 8
+    ps, ts = _slab_case(case, m, scheme, drift, cuda, zbs, plane0, n_planes)
+    before = dict(tiled_pm.LAUNCHES)
+    args = (ps, ts, m, scheme, drift, zbs, plane0, n_planes)
+    gp = tiled_pm.deposit_slab(*args)
+    twin = tiled_pm.deposit_slab_plain(*args)
+    w = tiled_pm._WIDTH[scheme]
+    assert gp.shape == (n_planes + w - 1 + 2 * drift, m, m)
+    assert torch.equal(gp, tiled_pm.deposit_slab(*args))
+    torch.testing.assert_close(gp, twin, rtol=0,
+                               atol=1e-6 * float(twin.max()))
+    if case != "edge":  # a window's edge may lie past the periodic wrap
+        assert float(gp.double().sum()) == pytest.approx(int(ts[-1]),
+                                                         rel=1e-6)
+    field = torch.randn((3, gp.shape[0], m, m), device=cuda)
+    got = tiled_pm.gather_vec_slab(field, ps, ts, scheme, drift, zbs, plane0)
+    assert torch.equal(got, tiled_pm.gather_vec_slab_plain(
+        field, ps, ts, scheme, drift, plane0))
+    assert not got[3].any() and not got[:, int(ts[-1]):].any()
+    after = tiled_pm.LAUNCHES
+    assert after["deposit_slab"] == before["deposit_slab"] + 2
+    assert after["gather_slab"] == before["gather_slab"] + 1
+    assert (after["deposit"], after["gather"]) == (before["deposit"],
+                                                   before["gather"])
+
+
+@pytest.mark.parametrize("ncomp", [1, 2, 4])
+def test_slab_gather_components_and_stagings(cuda, ncomp):
+    ps, ts = _slab_case("clustered", 32, "tsc", 2, cuda, 8, 16, 8)
+    field = torch.randn((ncomp, 8 + 2 + 4, 32, 32), device=cuda)
+    twin = tiled_pm.gather_vec_slab_plain(field, ps, ts, "tsc", 2, 16)
+    g = tiled_pm._geometry(32, "tsc", 2, 8, 8)
+    for ncs in sorted({1, ncomp}):
+        assert torch.equal(tiled_pm._gather_cuda(field, ps, ts, 2, g, ncs, 16,
+                                                 True), twin)
+
+
+@pytest.mark.parametrize("zbs,scheme,drift", [(None, "cic", 0),
+                                              (None, "tsc", 1), (8, "cic", 2)])
+def test_slab_gather_beyond_drift_bound_matches_twin(cuda, zbs, scheme,
+                                                     drift):
+    """Particles past their drift bound: a support cell outside the staged
+    window is read from the extended field, and counts 0 where that ends;
+    bitwise the twin."""
+    m, plane0, n_planes = 32, 8, 8
+    ps, ts = _slab_case("clustered", m, scheme, 0, cuda, zbs, plane0,
+                        n_planes)
+    rng = np.random.default_rng(9)
+    delta = torch.as_tensor(((drift + 2.5) / m * rng.uniform(
+        -1, 1, (3, ps.shape[1]))).astype(np.float32), device=cuda)
+    real = ps[0] < tiled_pm.SENTINEL_MIN
+    ps[:3] = torch.where(real, periodic_wrap(ps[:3] + delta), ps[:3])
+    assert int(tiled_pm.drift_violations(ps, ts, m, scheme, drift, zbs,
+                                         plane0, n_planes)) > 0
+    w = tiled_pm._WIDTH[scheme]
+    field = torch.randn((3, n_planes + w - 1 + 2 * drift, m, m), device=cuda)
+    assert torch.equal(
+        tiled_pm.gather_vec_slab(field, ps, ts, scheme, drift, zbs, plane0),
+        tiled_pm.gather_vec_slab_plain(field, ps, ts, scheme, drift, plane0))
+
+
+@pytest.mark.parametrize("scheme,drift,n_dev", [("cic", 0, 4), ("tsc", 2, 4),
+                                               ("cic", 1, 2), ("tsc", 0, 8)])
+def test_slab_deposits_and_spill_make_the_single_deposit(cuda, scheme, drift,
+                                                         n_dev):
+    """D slab deposits on one card and add_spill against the single-device
+    deposit of the same particles (float32 rounding: the spill planes are
+    added in another order), and the slab gather of the halo-extended field
+    against the single gather, particle by particle."""
+    from pysco_tpu_torch.parallel import slab
+
+    m = 32
+    planes = m // n_dev
+    mesh = (cuda,) * n_dev
+    gps, cols = [], []
+    for r in range(n_dev):
+        ps, ts = _slab_case("clustered", m, scheme, drift, cuda, None,
+                            r * planes, planes, seed=3)
+        gps.append(tiled_pm.deposit_slab(ps, ts, m, scheme, drift, None,
+                                         r * planes, planes))
+        cols.append((ps, ts))
+    got = torch.cat(slab.add_spill(gps, planes, mesh, lead=drift))
+    # the same drifted particles, each from the shard that owns it
+    real = torch.cat([ps[:, :int(ts[-1])] for ps, ts in cols], dim=1)
+    n = real.shape[1]
+    pc = torch.full((4, tiled_pm.padded_cols(n)), tiled_pm.SENTINEL,
+                    device=cuda)
+    pc[3] = 0.0
+    pc[:, :n] = real
+    ps1, _, ts1 = tiled_pm.sort_particles(pc, torch.zeros_like(pc), m, scheme)
+    want = tiled_pm.deposit(ps1, ts1, m, scheme)
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-6 * float(want.max()))
+    field = torch.randn((3, m, m, m), device=cuda)
+    w = tiled_pm._WIDTH[scheme]
+    ext = slab.halo_lr(list(torch.chunk(field, n_dev, dim=1)), drift,
+                       w - 1 + drift, mesh, axis=1)
+    for r, (ps, ts) in enumerate(cols):
+        acc = tiled_pm.gather_vec_slab(ext[r].contiguous(), ps, ts, scheme,
+                                       drift, None, r * planes)
+        one = tiled_pm.gather_vec_cl_plain(
+            field, ps, torch.tensor([0, int(ts[-1])], device=cuda), scheme)
+        assert torch.equal(acc, one)
+
+
 @pytest.mark.parametrize("ncomp", [1, 2, 3, 4])
 @pytest.mark.parametrize("m,zbs,scheme,drift", [
     (32, None, "cic", 0), (32, None, "tsc", 3), (32, 8, "ngp", 2),
@@ -228,12 +384,17 @@ def test_wrappers_check_inputs(cuda):
         tiled_pm.gather_vec_cl(shifted, ps, ts, "cic")
 
 
-def test_run_reproducible_and_golden(cuda, tmp_path):
-    """The golden configuration twice on the card: the trajectories are
-    bitwise equal, and P(k) meets tests/golden_pk_32.json."""
+@pytest.mark.parametrize("mode,devices", [("single", None), ("slab", 4),
+                                          ("replicated", 2)])
+def test_run_reproducible_and_golden(cuda, tmp_path, mode, devices):
+    """The golden configuration twice on the card, on the card alone and
+    in the multi-device modes on a mesh that repeats it: the trajectories
+    are bitwise equal, and P(k) meets tests/golden_pk_32.json."""
     pk_file = tmp_path / "pk.dat"
     write_power_spectrum_table(str(pk_file))
+    mesh = ["cuda:0"] * devices if devices else None
     param = {
+        "parallel_mode": mode,
         "theory": "newton", "H0": 72, "Om_m": 0.25733, "T_cmb": 2.726,
         "N_eff": 3.044, "w0": -1.0, "wa": 0.0, "boxlen": 100,
         "ncoarse": 5, "npart": 16 ** 3, "z_start": 49, "seed": 42,
@@ -249,7 +410,16 @@ def test_run_reproducible_and_golden(cuda, tmp_path):
     snaps = []
     for tag in ("a", "b"):
         base = tmp_path / tag
-        pysco_tpu_torch.run(dict(param, base=str(base)), device="cuda")
+        tiled_pm.reset_launches()
+        recs = pysco_tpu_torch.run(dict(param, base=str(base)), device="cuda",
+                                   devices=mesh)
+        # every force evaluation (the steps and the initial one) went
+        # through the mode's kernel forms, once per shard
+        evals, n = len(recs) + 1, devices or 1
+        form = ("deposit_slab", "gather_slab") if mode == "slab" else (
+            "deposit", "gather")
+        assert tiled_pm.LAUNCHES == {
+            k: evals * n if k in form else 0 for k in tiled_pm.LAUNCHES}
         snaps.append(iostream.read_snapshot_particles_npz(
             glob.glob(f"{base}/output_00003/particles_*.npz")[0]))
     for x, y in zip(*snaps):
@@ -416,6 +586,22 @@ def test_stencil_wrappers_check_inputs(cuda):
         stencil.restrict3("linear", x, b.cpu())
 
 
+def test_psum_in_shard_order_on_the_card(cuda):
+    """The mesh's reductions on a mesh that repeats the card: bitwise the
+    sequential float32 sum in shard order, as on the CPU."""
+    from pysco_tpu_torch.parallel import mesh as pmesh
+
+    rng = np.random.default_rng(5)
+    xs = [(rng.standard_normal((64, 64)) * 10.0 ** rng.integers(-3, 4))
+          .astype(np.float32) for _ in range(4)]
+    want = ((xs[0] + xs[1]) + xs[2]) + xs[3]
+    mesh = pmesh.make_mesh(devices=["cuda:0"] * 4)
+    got = pmesh.psum([torch.as_tensor(x, device=cuda) for x in xs], mesh)
+    assert len(got) == 4 and all(g.is_cuda for g in got)
+    np.testing.assert_array_equal(got[3].cpu().numpy(), want)
+    assert len(pmesh.make_mesh()) == torch.cuda.device_count()
+
+
 def test_power_spectrum_bitwise(cuda):
     x, _, _ = _grids(64, 5, cuda)
     xk = fourier.rfft3(1.0 + 0.3 * x)
@@ -564,6 +750,9 @@ def test_fr_run_reproducible(cuda, tmp_path):
         prev = dict.fromkeys(recs[0].launches, 0)
         for r in recs:
             for k, v in r.launches.items():
+                if k in ("deposit_slab", "gather_slab"):
+                    assert v == 0  # the slab mode's call forms
+                    continue
                 assert v > prev[k], (r.nsteps, k)
             prev = dict(r.launches)
             assert abs(r.mean_additional - 1.0) < 0.1

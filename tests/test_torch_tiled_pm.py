@@ -37,9 +37,10 @@ def _rows(n, seed, clustered=False):
     return pos, vel
 
 
-def _jax_sorted(pos, vel, m, scheme):
+def _jax_sorted(pos, vel, m, scheme, plane0=0, n_planes=None):
     pc, vc = pallas_pm.to_columns(pos, vel, pos.shape[0])
-    ps, vs, ts = pallas_pm.sort_particles(pc, vc, m, scheme)
+    ps, vs, ts = pallas_pm.sort_particles(pc, vc, m, scheme, plane0,
+                                          n_planes)
     return np.array(ps), np.array(vs), np.array(ts)
 
 
@@ -59,13 +60,19 @@ def _t(a):
     return torch.as_tensor(np.ascontiguousarray(a))
 
 
+# the whole grid (the single-device form) and a slab of it
+PLANES = [(0, None), (8, 8)]
+
+
+@pytest.mark.parametrize("plane0,n_planes", PLANES)
 @pytest.mark.parametrize("scheme", SCHEMES)
 @pytest.mark.parametrize("m", [16, 32])
-def test_tile_keys_match(scheme, m):
+def test_tile_keys_match(scheme, m, plane0, n_planes):
     pos, vel = _rows(1000, 1)
     pc, _ = pallas_pm.to_columns(pos, vel, 1000)
-    want = np.array(pallas_pm.tile_keys(pc, m, scheme))
-    got = tiled_pm.tile_keys(_t(np.array(pc)), m, scheme).numpy()
+    want = np.array(pallas_pm.tile_keys(pc, m, scheme, plane0, n_planes))
+    got = tiled_pm.tile_keys(_t(np.array(pc)), m, scheme, None, plane0,
+                             n_planes).numpy()
     np.testing.assert_array_equal(got, want)
 
 
@@ -97,21 +104,24 @@ def test_sort_matches(scheme):
         assert lookup[tuple(p)] == tuple(v)
 
 
+@pytest.mark.parametrize("plane0,n_planes", PLANES)
 @pytest.mark.parametrize("scheme,drift", [("cic", 1), ("tsc", 2),
                                           ("ngp", 3)])
-def test_drift_violations_match(scheme, drift):
+def test_drift_violations_match(scheme, drift, plane0, n_planes):
     """Counts equal on drifted particles, some of them past the bound."""
     m, n = 32, 3000
     pos, vel = _rows(n, 5)
-    ps, _, ts = _jax_sorted(pos, vel, m, scheme)
+    ps, _, ts = _jax_sorted(pos, vel, m, scheme, plane0, n_planes)
     bad = _drifted(ps, m, drift + 1.5, 6)
     want = int(pallas_pm.drift_violations(jnp.asarray(bad), jnp.asarray(ts),
-                                          m, scheme, drift))
-    got = int(tiled_pm.drift_violations(_t(bad), _t(ts), m, scheme, drift))
+                                          m, scheme, drift, plane0,
+                                          n_planes))
+    got = int(tiled_pm.drift_violations(_t(bad), _t(ts), m, scheme, drift,
+                                        None, plane0, n_planes))
     assert got == want > 0
     ok = _drifted(ps, m, drift - 0.05, 7)
-    assert int(tiled_pm.drift_violations(_t(ok), _t(ts), m, scheme,
-                                         drift)) == 0
+    assert int(tiled_pm.drift_violations(_t(ok), _t(ts), m, scheme, drift,
+                                         None, plane0, n_planes)) == 0
 
 
 def _deposit_and_gather(ps, ts, m, scheme, drift, seed):
