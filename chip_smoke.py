@@ -87,7 +87,19 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    the same configuration with ``parallel_mode = replicated`` on
    ``[cuda:0] * 2`` for a few steps; the golden configuration in both
    modes within 1e-4; a 128^3 slab run whose ``slab_slack`` is so low
-   that the capacity re-balancing fires (read in its log).
+   that the capacity re-balancing fires (read in its log);
+14. the slab multigrid and FAS with sharded ICs on the one card: phase 10's
+   configuration with ``parallel_mode = slab`` on ``[cuda:0] * 4`` (its ICs
+   from ``parallel/ic_slab.py``, their seconds beside phase 10's; 4
+   ``deposit_slab`` and 4 ``gather_slab`` launches a step and none of the
+   single forms; the stencil kernels launched on every step at the
+   replicated coarse levels, their counts logged; P(k) within 1e-4 of
+   phase 10's run; V-cycles per solve, the median step, the peak memory,
+   one slab FAS and one slab Poisson V-cycle beside the single-device
+   ones); phase 7's configuration cut to z = 49 -> 30 in slab mode
+   against a single-mode run of it (P(k) within 1e-4); the e2e rows of
+   phases 6 and 9 in slab mode twice (bitwise equal, within 1e-4 of the
+   single-mode card runs).
 
 The last two lines of standard output are the kernels' JSON record (with
 each kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -1522,9 +1534,10 @@ def _fr_components(torch, np, pos, vel, param, n, scheme, ncoarse):
         "gather (drift 0)": lambda: tp.gather_vec_cl(force, ps, ts, scheme),
         "gather (drift 1)": lambda: tp.gather_vec_cl(force, ps, ts, scheme, 1),
     }
+    times = {}
     for name, fn in comps.items():
-        log(f"[10 fr components] {n}^3 {name}: "
-            f"{time_ms(torch, fn, 5):.3f} ms")
+        times[name] = time_ms(torch, fn, 5)
+        log(f"[10 fr components] {n}^3 {name}: {times[name]:.3f} ms")
     log(f"[10 fr components] mean(u) of the stalled solve "
         f"{float(u.double().mean()):.7f}")
     # the rest of a lazy step, itemised: the eager passes around the force
@@ -1574,6 +1587,7 @@ def _fr_components(torch, np, pos, vel, param, n, scheme, ncoarse):
         log(f"[10 fr step items] {n}^3 {name}: {dev:.3f} ms by CUDA events, "
             f"{host:.3f} ms by the host clock; {cycles[0]:.2f} FAS and "
             f"{cycles[1]:.2f} Poisson V-cycles a call")
+    return times
 
 
 def _per_solve(stats):
@@ -1621,8 +1635,13 @@ def phase_fr_main_path(torch, np, tmp):
         f"{k} {v:.1f}" for k, v in per_step.items()))
     pos, vel = _check_outputs(torch, np, base, n, "cic", "10 fr main")
     param = dict(GOLDEN_PARAM, **over)
-    _fr_components(torch, np, pos, vel, param, n, "cic", 9)
-    return launches
+    times = _fr_components(torch, np, pos, vel, param, n, "cic", 9)
+    ref = {"base": base, "median_ms": float(np.median(steps_ms)),
+           "fas": fas, "lin": lin, "peak_gib": peak / 2 ** 30,
+           "ic_s": ic_device.TIMES["generate_lpt"],
+           "fas_cycle_ms": times["V_cycle_FAS"],
+           "poisson_cycle_ms": times["V_cycle (Poisson)"]}
+    return launches, ref
 
 
 def phase_fr_n2(torch, np, tmp):
@@ -1790,9 +1809,23 @@ def _per_step(recs, names):
     return out
 
 
+def _pk_worst(np, got, want, tag):
+    """Max relative P(k) difference on the bins with >= 8 modes; the files
+    and mode counts must be the same."""
+    check(sorted(got) == sorted(want) and got,
+          f"{tag}: P(k) files {sorted(got)} != {sorted(want)}")
+    worst = 0.0
+    for name, a in got.items():
+        b = want[name]
+        check(np.array_equal(a[:, 2], b[:, 2]), f"{tag} {name}: mode counts")
+        sel = b[:, 2] >= 8
+        worst = max(worst, float((np.abs(a[sel, 1] - b[sel, 1])
+                                  / b[sel, 1]).max()))
+    return worst
+
+
 def phase_parallel(torch, np, tmp, main_base, main_stale, main_sorted):
-    """The multi-device modes on the one card; returns the slab path's
-    launch counts."""
+    """The multi-device modes on the one card."""
     from pysco_tpu_torch.utils import io as iostream
 
     n, d = 256, 4
@@ -1815,15 +1848,8 @@ def phase_parallel(torch, np, tmp, main_base, main_stale, main_sorted):
           f"slab drift levels {drifts}")
     _check_outputs(torch, np, base, n, "cic", "13 slab")
     # against phase 5's single-device run of the same configuration
-    single, worst = _pk_files(np, main_base), 0.0
     mine = _pk_files(np, base)
-    check(sorted(mine) == sorted(single), f"P(k) files {sorted(mine)}")
-    for name, a in mine.items():
-        b = single[name]
-        check(np.array_equal(a[:, 2], b[:, 2]), f"{name}: mode counts")
-        sel = b[:, 2] >= 8
-        worst = max(worst, float((np.abs(a[sel, 1] - b[sel, 1])
-                                  / b[sel, 1]).max()))
+    worst = _pk_worst(np, mine, _pk_files(np, main_base), "13 slab")
     check(worst <= 1e-5, f"slab vs single-device P(k): {worst:.2e} > 1e-5")
     # two slab runs: bitwise
     again = _pk_files(np, runs[1][2])
@@ -1883,7 +1909,236 @@ def phase_parallel(torch, np, tmp, main_base, main_stale, main_sorted):
     _check_outputs(torch, np, base, 128, "cic", "13 rebalance")
     log(f"[13 rebalance] 128^3, slab_slack = 1.05: {len(fired)} "
         f"re-balancing(s) over {len(recs)} steps, first: {fired[0]!r}")
-    return slab_launches
+
+
+def _slab_cycle_times(torch, np, base, n, scheme, param, mesh):
+    """One slab FAS V-cycle and one slab Poisson V-cycle on the final state
+    of a slab run, beside the single-device cycles on the same state (mean
+    of 3 by CUDA events after a warm-up)."""
+    from pysco_tpu_torch import solver
+    from pysco_tpu_torch.cosmo import generate
+    from pysco_tpu_torch.models import cubic
+    from pysco_tpu_torch.models import laplacian as lap
+    from pysco_tpu_torch.models import multigrid as mg
+    from pysco_tpu_torch.ops import tiled_pm as tp
+    from pysco_tpu_torch.parallel import mesh as pmesh
+    from pysco_tpu_torch.parallel import slab, slab_mg
+    from pysco_tpu_torch.utils import io as iostream
+    from pysco_tpu_torch.utils.units import set_units
+
+    snap = [f for f in os.listdir(os.path.join(base, "output_00001"))
+            if f.endswith(".npz")][0]
+    pos, vel = iostream.read_snapshot_particles_npz(
+        os.path.join(base, "output_00001", snap))
+    pc, vc = tp.to_columns_host(pos, vel, n ** 3)
+    del pos, vel
+    ps, _, ts = tp.sort_particles(torch.as_tensor(pc, device="cuda"),
+                                  torch.as_tensor(vc, device="cuda"), n,
+                                  scheme)
+    del pc, vc
+    density = tp.deposit(ps, ts, n, scheme)
+    del ps, ts
+    p = dict(param, aexp=1.0 / (1.0 + float(param["z_out"].strip("[]"))))
+    generate(p)
+    set_units(p)
+    dyn = solver.compute_dynamics(p)
+    b = dyn.fR_f1 * density + dyn.fR_f2
+    ops = mg.fas_ops_cubic(dyn.fR_q)
+    u = mg.FAS(cubic.initialise_potential(b, dyn.fR_q), b, ops, 9, 2, 1, 0.0)
+    rhs = solver._newton_rhs(density, dyn)
+    del density
+    phi = mg.linear(lap.initialise_potential(rhs), rhs, 9, 2, 1, 0.0)
+    sops = slab_mg.fas_ops_cubic_slab(dyn.fR_q, mesh)
+    us, bs, phis, rhss = (pmesh.scatter(a, mesh, 0) for a in (u, b, phi, rhs))
+    times = {
+        "slab FAS": time_ms(torch, lambda: slab_mg.V_cycle_FAS_slab(
+            us, bs, sops, 9, 2, 1, mesh), 3),
+        "single FAS": time_ms(torch, lambda: mg.V_cycle_FAS(
+            u, b, ops, 9, 2, 1), 3),
+        "slab Poisson": time_ms(torch, lambda: slab_mg.V_cycle_slab(
+            phis, rhss, 9, 2, 1, mesh), 3),
+        "single Poisson": time_ms(torch, lambda: mg.V_cycle(
+            phi, rhs, 9, 2, 1), 3),
+    }
+    # the slab levels' pieces on the finest grid, each beside the
+    # single-device call that does the same work
+    reds = slab_mg.pack_rb_slab(us)[0]
+    pieces = {
+        "scalaron smoothing (Npre=2)": (
+            lambda: sops.smoothing(us, bs, 2), lambda: ops.smoothing(u, b, 2)),
+        "Poisson smoothing (Npre=2)": (
+            lambda: slab_mg.smoothing_slab(phis, rhss, 2, mesh),
+            lambda: lap.smoothing(phi, rhs, 2)),
+        "pack_rb": (lambda: slab_mg.pack_rb_slab(us),
+                    lambda: lap.pack_rb(u)),
+        "packed neighbour sum": (
+            lambda: slab_mg.packed_neighbour_sum_slab(reds, True, mesh),
+            None),
+        "one-plane halo of a half-lattice": (
+            lambda: slab.exchange_halo_x(reds, 1, mesh), None),
+        "scalaron restrict_residual": (
+            lambda: sops.restrict_residual(us, bs),
+            lambda: ops.restrict_residual(u, b)),
+        f"prolongation (to {n}^3)": (
+            lambda: slab_mg.prolongation_slab(
+                slab_mg.restriction_slab(us), mesh), None),
+    }
+    for name, (slab_fn, single_fn) in pieces.items():
+        t = time_ms(torch, slab_fn, 3)
+        beside = (f"; single {time_ms(torch, single_fn, 3):.2f} ms"
+                  if single_fn else "")
+        log(f"[14 slab components] {n}^3 {name}: slab {t:.2f} ms{beside}")
+    _top_kernels(torch, lambda: slab_mg.V_cycle_FAS_slab(
+        us, bs, sops, 9, 2, 1, mesh), "one slab FAS V-cycle")
+    return times
+
+
+def _top_kernels(torch, fn, what, top=8):
+    """The device time of ``fn`` by kernel name (torch.profiler), the
+    largest ``top`` logged with their launch counts."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            t, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, k + 1)
+    total = sum(t for t, _ in by_name.values())
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    log(f"[14 slab profile] {what}: device time {total:.2f} ms over "
+        f"{sum(k for _, k in by_name.values())} launches; the largest: "
+        + "; ".join(f"{name[:60]} {t:.2f} ms x{k}" for name, (t, k) in rows))
+
+
+# the kernels of the slab multigrid path: the slab transfers on every
+# shard, the stencil kernels at the replicated coarse levels on shard 0's
+# device (the slab levels are torch operations)
+SLAB_MG_KERNELS = SLAB_KERNELS + ("half_sweep", "restrict3",
+                                  "add_prolongation")
+
+
+def phase_slab_mg(torch, np, tmp, fr_ref):
+    """The slab multigrid and FAS and the sharded ICs on the card: this
+    slice's path (phase 10's configuration in slab mode on [cuda:0] x 4),
+    phase 7's in slab mode against a single-mode run of it, and the e2e
+    multigrid and f(R) rows in slab mode twice. Returns the launch counts
+    of the first run."""
+    import pysco_tpu_torch
+    from pysco_tpu_torch.parallel import ic_slab
+    from pysco_tpu_torch.parallel import mesh as pmesh
+
+    d = 4
+    mesh4 = ["cuda:0"] * d
+    stencils = ("half_sweep", "scalaron_half_sweep", "restrict3",
+                "add_prolongation", "residual_norm2")
+    # (a) fr_n1_cic_multigrid_512 in slab mode
+    n = 512
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ic_slab.TIMES["generate_lpt_slab"] = None
+    over = dict(FR_OVERRIDES, fR_n=1, boxlen=500.0, ncoarse=9, npart=n ** 3,
+                z_out="[20]", mass_scheme="CIC", parallel_mode="slab")
+    recs, launches, stats, base = _drive(
+        torch, tmp, "14 slab fr", over,
+        SLAB_MG_KERNELS + ("scalaron_half_sweep",), mesh4)
+    peak = torch.cuda.max_memory_allocated()
+    ic_s = ic_slab.TIMES["generate_lpt_slab"]
+    check(ic_s is not None, "the slab run did not build its ICs with ic_slab")
+    for r, step in zip(recs, _per_step(recs, SLAB_KERNELS + ("deposit",
+                                                             "gather"))):
+        check(step == {"deposit_slab": d, "gather_slab": d, "deposit": 0,
+                       "gather": 0},
+              f"14 slab fr step {r.nsteps}: launches {step}, not {d} of "
+              "each slab form and none of the single forms")
+    check(len(recs) >= 3, f"only {len(recs)} slab f(R) steps")
+    mean_u = [r.mean_additional for r in recs]
+    check(all(np.isfinite(mean_u)) and all(abs(m - 1) < 0.1 for m in mean_u),
+          f"slab mean(u) off its background value: {mean_u}")
+    _check_outputs(torch, np, base, n, "cic", "14 slab fr")
+    worst = _pk_worst(np, _pk_files(np, base), _pk_files(np, fr_ref["base"]),
+                      "14 slab fr")
+    check(worst < 1e-4, f"slab vs phase 10 P(k): {worst:.2e} >= 1e-4")
+    fas, lin = _per_solve(stats)
+    steps_ms = [1e3 * r.seconds for r in recs[1:]]
+    log(f"[14 slab fr] {n}^3 f(R) n = 1 on [cuda:0] x {d}: ICs by ic_slab "
+        f"{ic_s:.2f} s (phase 10's device ICs {fr_ref['ic_s']:.2f} s); "
+        f"median step {np.median(steps_ms):.1f} ms over {len(steps_ms)} "
+        f"steps (phase 10: {fr_ref['median_ms']:.1f}); V-cycles per FAS "
+        f"solve {fas:.2f} (phase 10: {fr_ref['fas']:.2f}), per Poisson "
+        f"solve {lin:.2f} ({fr_ref['lin']:.2f}); peak device memory "
+        f"{peak / 2 ** 30:.2f} GiB ({fr_ref['peak_gib']:.2f}); P(k) vs "
+        f"phase 10 max rel {worst:.2e} (bound 1e-4)")
+    log("[14 slab fr] stencil kernel launches per step (the replicated "
+        "coarse levels): " + "; ".join(
+            f"step {r.nsteps}: " + ", ".join(
+                f"{k} {r.launches[k] - p.launches[k]}" for k in stencils)
+            for p, r in zip(recs, recs[1:])))
+    log(f"[14 slab fr] {d} deposit_slab and {d} gather_slab launches on "
+        f"every one of {len(recs)} steps, none of the single forms; "
+        "launch totals (the initial evaluation included): "
+        + ", ".join(f"{k} {launches[k]}" for k in SLAB_KERNELS + stencils)
+        + " (residual_norm2: none expected, the slab norms are torch sums)")
+    param = dict(GOLDEN_PARAM, **over)
+    cyc = _slab_cycle_times(torch, np, base, n, "cic", param,
+                            pmesh.make_mesh(devices=mesh4))
+    log(f"[14 slab fr] {n}^3 V-cycles by CUDA events: slab FAS "
+        f"{cyc['slab FAS']:.2f} ms, single FAS on the same state "
+        f"{cyc['single FAS']:.2f} (phase 10: {fr_ref['fas_cycle_ms']:.2f}); "
+        f"slab Poisson {cyc['slab Poisson']:.2f} ms, single "
+        f"{cyc['single Poisson']:.2f} (phase 10: "
+        f"{fr_ref['poisson_cycle_ms']:.2f})")
+
+    # (b) phase 7's configuration cut to z = 30, single mode and slab mode
+    mg7 = {"boxlen": 500.0, "ncoarse": 8, "npart": 256 ** 3,
+           "z_out": "[30]", "mass_scheme": "TSC",
+           "linear_newton_solver": "multigrid", "multigrid_cycle": "V"}
+    single = _drive(torch, tmp, "14 mg single", mg7, POISSON_KERNELS)
+    slab_run = _drive(torch, tmp, "14 mg slab",
+                      dict(mg7, parallel_mode="slab"), SLAB_MG_KERNELS,
+                      mesh4)
+    worst7 = _pk_worst(np, _pk_files(np, slab_run[3]),
+                       _pk_files(np, single[3]), "14 mg slab")
+    check(worst7 < 1e-4, f"slab vs single multigrid P(k): {worst7:.2e}")
+    _check_outputs(torch, np, slab_run[3], 256, "tsc", "14 mg slab")
+    log(f"[14 mg slab] 256^3 newton multigrid to z = 30: P(k) vs the single "
+        f"mode max rel {worst7:.2e} (bound 1e-4); V-cycles per solve "
+        f"{slab_run[2]['cycles'] / slab_run[2]['solves']:.2f} (single "
+        f"{single[2]['cycles'] / single[2]['solves']:.2f}); median step "
+        f"{np.median([1e3 * r.seconds for r in slab_run[0][1:]]):.1f} ms "
+        f"(single {np.median([1e3 * r.seconds for r in single[0][1:]]):.1f})")
+
+    # (c) the e2e rows in slab mode, twice: bitwise equal, and within 1e-4
+    # of phases 6 and 9 (their first card runs, whose power spectrum table
+    # they share)
+    pk_file = os.path.join(tmp, "pk_e2e.dat")
+    for row, over in (("newton_multigrid_tsc_2lpt", {}),
+                      ("mond_multigrid", {"theory": "mond"}),
+                      ("fr_n1", {"theory": "fr", "fR_n": 1}),
+                      ("fr_n2", {"theory": "fr", "fR_n": 2})):
+        got = []
+        for run in ("a", "b"):
+            base = os.path.join(tmp, f"e2e_slab_{row}_{run}")
+            pysco_tpu_torch.run(dict(E2E_PARAM, power_spectrum_file=pk_file,
+                                     base=base, parallel_mode="slab", **over),
+                                device="cuda", devices=mesh4)
+            got.append(_pk_files(np, base))
+        for name, a in got[0].items():
+            check(np.array_equal(a, got[1][name]),
+                  f"{row}: two slab runs differ in {name}")
+        worst_e = _pk_worst(np, got[0], _pk_files(
+            np, os.path.join(tmp, f"e2e_{row}_a")), row)
+        check(worst_e < 1e-4, f"{row} slab vs single: {worst_e:.2e}")
+        log(f"[14 e2e slab] {row} on [cuda:0] x {d}: two runs bitwise equal; "
+            f"P(k) vs the single-mode card run max rel {worst_e:.2e} "
+            "(bound 1e-4)")
+    return launches
 
 
 def main() -> int:
@@ -1915,11 +2170,11 @@ def main() -> int:
         phase_mg_e2e(np, tmp, (("fr_n1", {"theory": "fr", "fR_n": 1}),
                                ("fr_n2", {"theory": "fr", "fR_n": 2})),
                      "9 fr e2e")
-        launches = phase_fr_main_path(torch, np, tmp)
+        launches, fr_ref = phase_fr_main_path(torch, np, tmp)
         phase_fr_n2(torch, np, tmp)
         phase_extras(torch, np, tmp)
-        slab_launches = phase_parallel(torch, np, tmp, main_base, main_stale,
-                                       main_sorted)
+        phase_parallel(torch, np, tmp, main_base, main_stale, main_sorted)
+        slab_launches = phase_slab_mg(torch, np, tmp, fr_ref)
         launches.update({k: slab_launches[k] for k in SLAB_KERNELS})
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

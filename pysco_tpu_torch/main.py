@@ -31,6 +31,8 @@ from . import solver as solver_mod
 from .models import multigrid
 from .ops import mesh as mesh_ops
 from .ops import stencil, tiled_pm
+from .parallel import ic_slab
+from .parallel import mesh as pmesh
 from .utils import io as iostream
 from .utils import profiling
 from .utils.config import Params, extra_name, params_from_dict, with_defaults
@@ -193,18 +195,19 @@ def run(param, device="cuda", devices=None) -> list:
 
     Returns one :class:`StepRecord` per step of the loop.
 
-    Differences from ``pysco_tpu.run``: a step's overflow count (drift-bound
-    violations, slab capacity) is checked *before* its power spectrum is
-    written, in all three loops, so an aborted step leaves no P(k) file
-    (the JAX loops write first). Slab mode runs the FFT solvers
-    (``fft``, ``fft_7pt``, ``full_fft``) with ``theory = newton``,
-    ``parametrized`` or ``mond``; it still refuses, with
-    ``NotImplementedError``, ``linear_newton_solver = multigrid`` and
-    ``theory = fr`` (the slab multigrid and FAS of
-    ``pysco_tpu/parallel/slab_mg.py``), and it builds its initial
-    conditions on the host and distributes them (the sharded LPT of
-    ``pysco_tpu/parallel/ic_slab.py`` is not ported): both are the port's
-    next slice.
+    Slab mode runs every theory and solver, and builds LPT initial
+    conditions sharded on the mesh (``parallel/ic_slab.py``) whenever
+    ``ic_slab.supported`` holds (else on the host, distributed by base
+    plane), as ``pysco_tpu.run`` does.
+
+    Differences from ``pysco_tpu.run``:
+    - a step's overflow count (drift-bound violations, slab capacity) is
+      checked *before* its power spectrum is written, in all three loops,
+      so an aborted step leaves no P(k) file (the JAX loops write first);
+    - slab mode's multigrid and FAS take a slab's first guess -h^2 b / 6
+      (and the f(R) scalaron's) with h from the grid's size, where the JAX
+      slab functions take the slab's height: the port's slab solves are the
+      single-device ones (``parallel/slab_mg.py``).
     """
     device = _resolve_device(device)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -239,10 +242,19 @@ def run(param, device="cuda", devices=None) -> list:
     logging.warning("----- Initial conditions -----")
     parallel_mode = str(param.get("parallel_mode", "single")).casefold()
     device_ic = parallel_mode == "single" and ic_device.supported(param)
+    mesh = slab_state = None
+    if parallel_mode in ("slab", "replicated"):
+        mesh = pmesh.make_mesh(devices=devices, device=device)
+    slab_ic = parallel_mode == "slab" and ic_slab.supported(param, len(mesh))
     if device_ic:
         # the LPT algebra on the device (only the RNG draw on the host),
         # straight into the column state
         position, velocity = ic_device.generate_lpt(param, tables, device)
+    elif slab_ic:
+        # the LPT algebra sharded over the mesh: no device holds more than
+        # its slab, and the particles start on the shard that owns them
+        slab_state = ic_slab.generate_lpt_slab(param, tables, mesh)
+        position = velocity = None
     else:
         # a restart restores parameters (parallel_mode among them) from
         # the snapshot, so the configuration is read only after this call
@@ -256,12 +268,13 @@ def run(param, device="cuda", devices=None) -> list:
     integrator = str(param["integrator"]).casefold()
     pk_mode = _save_pk_mode(param)
     if parallel_mode in ("slab", "replicated"):
-        from .parallel import mesh as pmesh
-
-        mesh = pmesh.make_mesh(devices=devices, device=device)
-        loop = _run_slab if parallel_mode == "slab" else _run_replicated
-        return loop(param, tables, cfg, integrator, pk_mode, position,
-                    velocity, z_out, mesh)
+        if mesh is None:  # a restart that restored the mode
+            mesh = pmesh.make_mesh(devices=devices, device=device)
+        if parallel_mode == "slab":
+            return _run_slab(param, tables, cfg, integrator, pk_mode,
+                             position, velocity, z_out, mesh, slab_state)
+        return _run_replicated(param, tables, cfg, integrator, pk_mode,
+                               position, velocity, z_out, mesh)
     if parallel_mode != "single":
         raise NotImplementedError(
             f"parallel_mode={parallel_mode!r}, should be 'single', "
@@ -455,11 +468,12 @@ def _run_replicated(param, tables, cfg, integrator, pk_mode, position,
 
 
 def _run_slab(param, tables, cfg, integrator, pk_mode, position, velocity,
-              z_out, mesh) -> list:
+              z_out, mesh, state=None) -> list:
     """Slab-decomposed run loop (``parallel/slab.py``): grids and particles
-    sharded in x over the mesh; the tiled engine and the FFT solvers
-    only. The initial conditions come from the host and are distributed
-    by their base plane."""
+    sharded in x over the mesh, every theory and solver, the tiled engine
+    only. ``state`` is the sharded state of ``ic_slab.generate_lpt_slab``;
+    without it the host-built particles are distributed by their base
+    plane."""
     from .parallel import slab
 
     slab.check_supported(cfg)
@@ -467,16 +481,20 @@ def _run_slab(param, tables, cfg, integrator, pk_mode, position, velocity,
     logging.warning("slab mode: %d devices, %d planes each",
                     n_dev, cfg.ncells_1d // n_dev)
     slack = float(param.get("slab_slack", 1.25))
-    (pos_d, vel_d, acc_d, phi_d, u_d, ts_d) = slab.distribute_particles(
-        mesh, cfg, position, velocity, slack)
+    if state is None:
+        state = slab.distribute_particles(mesh, cfg, position, velocity,
+                                          slack)
     del position, velocity
+    pos_d, vel_d, acc_d, phi_d, u_d, ts_d = state
+    del state
     step_fns = {}
 
-    def step_fn(save_pk, presorted=0):
-        key = (save_pk, presorted)
+    def step_fn(save_pk, first_call=False, presorted=0):
+        key = (save_pk, first_call, presorted)
         if key not in step_fns:
             step_fns[key] = slab.make_slab_step(
-                cfg, mesh, integrator, save_pk=save_pk, presorted=presorted)
+                cfg, mesh, integrator, save_pk=save_pk,
+                first_call=first_call, presorted=presorted)
         return step_fns[key]
 
     logging.warning("----- Run N-body -----")
@@ -484,8 +502,9 @@ def _run_slab(param, tables, cfg, integrator, pk_mode, position, velocity,
     save_pk_first = pk_mode == "yes"
     # first force evaluation: a zero-dt step (a kick by acc = 0 and no
     # drift) is migrate -> sort -> deposit -> solve -> gather
-    pos_d, vel_d, acc_d, phi_d, u_d, ts_d, pk, diag = step_fn(save_pk_first)(
-        pos_d, vel_d, acc_d, phi_d, u_d, ts_d, dyn, 0.0)
+    pos_d, vel_d, acc_d, phi_d, u_d, ts_d, pk, diag = step_fn(
+        save_pk_first, first_call=True)(pos_d, vel_d, acc_d, phi_d, u_d,
+                                        ts_d, dyn, 0.0)
     _handle_overflow(param, int(diag.overflow),
                      "slab particle capacity overflow")
     if save_pk_first:
@@ -556,7 +575,7 @@ def _run_slab(param, tables, cfg, integrator, pk_mode, position, velocity,
             _drift_level(cum_drift + step_bound, max_drift) if lazy else 0
         )
         pos_d, vel_d, acc_d, phi_d, u_d, ts_d, pk, diag = step_fn(
-            save_pk, presorted
+            save_pk, presorted=presorted
         )(pos_d, vel_d, acc_d, phi_d, u_d, ts_d, dyn, dt)
         if presorted:
             cum_drift += step_bound

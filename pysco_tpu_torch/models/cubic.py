@@ -81,7 +81,7 @@ def initialise_potential(b: torch.Tensor, q) -> torch.Tensor:
     Cardano with the cancellation-free sign choice: d1 = 27 h^2 q < 0, so
     d1 - sqrt(d1^2 - 4 d0^3) is the stable branch (near-empty cells would
     otherwise give C = 0 and an infinite guess)."""
-    n = b.shape[0]
+    n = b.shape[-1]  # the grid's size: the z extent, an x-slab's too
     h2 = 1.0 / (n * n)
     d1 = 27.0 * h2 * float(q)
     d0 = -3.0 * h2 * b.to(F64)

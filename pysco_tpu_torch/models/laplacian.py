@@ -81,7 +81,7 @@ def truncation_error_reformulated(x: torch.Tensor,
 
 def initialise_potential(b: torch.Tensor) -> torch.Tensor:
     """One Jacobi sweep from zero: u = -h^2 b / 6."""
-    n = b.shape[0]
+    n = b.shape[-1]  # the grid's size: the z extent, an x-slab's too
     return _f32(-1.0 / (6.0 * n * n)) * b
 
 
@@ -118,38 +118,23 @@ def unpack_rb(red: torch.Tensor, black: torch.Tensor) -> torch.Tensor:
 
 
 def _smoothing_packed(x, b, n_smoothing: int, rhs=None,
-                      f_relax: float = F_RELAX,
-                      pack=None, unpack=None, neighbour_sum=None):
-    """n_smoothing red-black sweeps with a single pack/unpack round trip.
-
-    Each colour update is :func:`stencil.half_sweep` (the CUDA kernel on
-    the card). The packing and neighbour primitives are injectable, for a
-    packing other than :func:`pack_rb` (its updates then run the plain
-    form with the injected neighbour sum)."""
-    pack = pack or pack_rb
-    unpack = unpack or unpack_rb
+                      f_relax: float = F_RELAX):
+    """n_smoothing red-black sweeps with a single pack/unpack round trip;
+    each colour update is :func:`stencil.half_sweep` (the CUDA kernel on
+    the card)."""
     n = x.shape[1]
-    red, black = pack(x)
-    h2b_r, h2b_b = pack(_f32(1.0 / (n * n)) * b)
-    rhs_r, rhs_b = pack(rhs) if rhs is not None else (None, None)
-
-    def half(src, dst, h2b, to_red, rhs_half):
-        if neighbour_sum is None:
-            return stencil.half_sweep(src, dst, h2b, to_red, f_relax,
-                                      rhs_half)
-        return stencil.half_sweep_plain(src, dst, h2b, to_red, f_relax,
-                                        rhs_half, neighbour_sum)
-
+    red, black = pack_rb(x)
+    h2b_r, h2b_b = pack_rb(_f32(1.0 / (n * n)) * b)
+    rhs_r, rhs_b = pack_rb(rhs) if rhs is not None else (None, None)
     for _ in range(n_smoothing):
-        red = half(black, red, h2b_r, True, rhs_r)
-        black = half(red, black, h2b_b, False, rhs_b)
-    return unpack(red, black)
+        red = stencil.half_sweep(black, red, h2b_r, True, f_relax, rhs_r)
+        black = stencil.half_sweep(red, black, h2b_b, False, f_relax, rhs_b)
+    return unpack_rb(red, black)
 
 
 def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
                               exact_root: bool, n_power: int, exact_solve,
-                              exact_scale: float, pack=None, unpack=None,
-                              neighbour_sum=None) -> torch.Tensor:
+                              exact_scale: float) -> torch.Tensor:
     """Packed red-black sweeps of the f(R) scalaron equation
     u^(n_power+1) + p u + q h^2 [- rhs] = 0, one pack/unpack round trip
     (``cubic.smoothing`` with n_power = 2, ``quartic.smoothing`` with 3).
@@ -160,19 +145,17 @@ def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
     ``exact_root`` the float64 closed form ``exact_solve(p, coef)`` takes
     the root in plain torch, coef = exact_scale (h^2 q [- rhs]) in float64
     (27 for the cubic's d1, 1 for the quartic). The relaxation factor is
-    :data:`F_RELAX`. An injected neighbour sum runs the plain form."""
-    pack = pack or pack_rb
-    unpack = unpack or unpack_rb
+    :data:`F_RELAX`."""
     n = x.shape[1]
     h2 = 1.0 / (n * n)
-    red, black = pack(x)
-    hb_r, hb_b = pack(_f32(h2) * b)
+    red, black = pack_rb(x)
+    hb_r, hb_b = pack_rb(_f32(h2) * b)
     if exact_root:
         base = exact_scale * h2 * float(q)
         if rhs is None:
             coef_r = coef_b = base
         else:
-            r_r, r_b = pack(rhs)
+            r_r, r_b = pack_rb(rhs)
             coef_r = base - exact_scale * r_r.double()
             coef_b = base - exact_scale * r_b.double()
     else:
@@ -180,26 +163,22 @@ def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
         if rhs is None:
             coef_r = coef_b = c0_q
         else:
-            r_r, r_b = pack(rhs)
+            r_r, r_b = pack_rb(rhs)
             coef_r, coef_b = c0_q - r_r, c0_q - r_b
 
     def half(src, dst, hb, coef, to_red):
         if exact_root:
-            nsum = neighbour_sum or packed_neighbour_sum
-            p = hb - _INVSIX * nsum(stencil._power(src, n_power), to_red)
+            p = hb - _INVSIX * packed_neighbour_sum(
+                stencil._power(src, n_power), to_red)
             x_new = exact_solve(p, coef).to(torch.float32)
             return dst + _f32(F_RELAX) * (x_new - dst)
-        if neighbour_sum is None:
-            return stencil.scalaron_half_sweep(src, dst, hb, coef, to_red,
-                                               F_RELAX, n_power)
-        return stencil.scalaron_half_sweep_plain(
-            src, dst, hb, coef, to_red, F_RELAX, n_power,
-            neighbour_sum=neighbour_sum)
+        return stencil.scalaron_half_sweep(src, dst, hb, coef, to_red,
+                                           F_RELAX, n_power)
 
     for _ in range(n_smoothing):
         red = half(black, red, hb_r, coef_r, True)
         black = half(red, black, hb_b, coef_b, False)
-    return unpack(red, black)
+    return unpack_rb(red, black)
 
 
 def _masked_sweep(x, b, rhs, f_relax: float):

@@ -57,7 +57,7 @@ def initialise_potential(b: torch.Tensor, q) -> torch.Tensor:
     """First guess assuming u_nb = 0, guarded against the small-b
     cancellation in Q + d0/Q (near-empty cells): a non-finite or too small
     result falls back to the b = 0 root (-h^2 q)^(1/4)."""
-    n = b.shape[0]
+    n = b.shape[-1]  # the grid's size: the z extent, an x-slab's too
     h2 = 1.0 / (n * n)
     d0 = 12.0 * h2 * float(q)
     p = h2 * b.to(F64)

@@ -182,9 +182,10 @@ def derivative_fR(a: torch.Tensor, b: torch.Tensor, f, fR_n: int,
 def restriction(x: torch.Tensor) -> torch.Tensor:
     """Full-weighting restriction: the mean over 2x2x2 children, summed in
     pairs along z, then y, then x (the order of the fused restriction
-    kernel and of the JAX kernel's pair-sum contractions)."""
-    m = x.shape[0] // 2
-    v = x.reshape(m, 2, m, 2, m, 2)
+    kernel and of the JAX kernel's pair-sum contractions). Each axis is
+    halved on its own: an x-slab (P, M, M) gives (P/2, M/2, M/2)."""
+    p, m, k = (s // 2 for s in x.shape)
+    v = x.reshape(p, 2, m, 2, k, 2)
     z = v[..., 0] + v[..., 1]
     y = z[:, :, :, 0] + z[:, :, :, 1]
     return (y[:, 0] + y[:, 1]) * 0.125

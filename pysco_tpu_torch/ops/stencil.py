@@ -135,11 +135,10 @@ def residual_plain(kind: str, x, b=None, rhs=None, q=None) -> torch.Tensor:
 # Plain twins of the kernels
 # ---------------------------------------------------------------------------
 
-def half_sweep_plain(src, dst, h2b, to_red: bool, f_relax: float, rhs=None,
-                     neighbour_sum=packed_neighbour_sum) -> torch.Tensor:
-    """Twin of :func:`half_sweep`. ``neighbour_sum`` is the packed
-    neighbour primitive (injectable for other packings)."""
-    tgt = (neighbour_sum(src, to_red) - h2b) * _INVSIX
+def half_sweep_plain(src, dst, h2b, to_red: bool, f_relax: float,
+                     rhs=None) -> torch.Tensor:
+    """Twin of :func:`half_sweep`."""
+    tgt = (packed_neighbour_sum(src, to_red) - h2b) * _INVSIX
     if rhs is not None:
         tgt = tgt + rhs
     return dst + _f32(f_relax) * (tgt - dst)
@@ -165,11 +164,9 @@ def newton_root(x, p, c0, n_power: int, iters: int = 3) -> torch.Tensor:
 
 def scalaron_half_sweep_plain(src, dst, hb, coef, to_red: bool,
                               f_relax: float, n_power: int,
-                              newton_iters: int = 3,
-                              neighbour_sum=packed_neighbour_sum):
-    """Twin of :func:`scalaron_half_sweep`. ``neighbour_sum`` is the
-    packed neighbour primitive (injectable for other packings)."""
-    p = hb - _INVSIX * neighbour_sum(_power(src, n_power), to_red)
+                              newton_iters: int = 3):
+    """Twin of :func:`scalaron_half_sweep`."""
+    p = hb - _INVSIX * packed_neighbour_sum(_power(src, n_power), to_red)
     x = newton_root(dst, p, coef, n_power, newton_iters)
     return dst + _f32(f_relax) * (x - dst)
 

@@ -58,6 +58,11 @@ def make_mesh(n_devices: int | None = None, devices=None,
     return mesh
 
 
+def shardwise(fn, *lists) -> list:
+    """``fn`` applied shard by shard to the sharded arrays ``lists``."""
+    return [fn(*args) for args in zip(*lists)]
+
+
 def _check(xs: Sequence[torch.Tensor], mesh: Mesh) -> None:
     if len(xs) != len(mesh):
         raise ValueError(f"{len(xs)} shards on a mesh of {len(mesh)}")
@@ -77,6 +82,59 @@ def ppermute_bwd(xs: Sequence[torch.Tensor], mesh: Mesh) -> list:
     _check(xs, mesh)
     d = len(mesh)
     return [xs[(r + 1) % d].to(mesh[r]) for r in range(d)]
+
+
+def ppermute(xs: Sequence[torch.Tensor], perm, mesh: Mesh) -> list:
+    """``lax.ppermute``: for every pair (i, j) of ``perm``, shard i's tensor
+    goes to shard j; a shard that no pair names receives zeros."""
+    _check(xs, mesh)
+    out = [torch.zeros_like(x, device=dev) for x, dev in zip(xs, mesh)]
+    for src, dst in perm:
+        out[dst] = xs[src].to(mesh[dst])
+    return out
+
+
+def all_gather(xs: Sequence[torch.Tensor], mesh: Mesh, axis: int) -> list:
+    """Tiled ``lax.all_gather``: the shards' tensors joined in shard order
+    along ``axis``, one copy per device of the mesh (shared by its
+    shards)."""
+    _check(xs, mesh)
+    return replicate(gather(xs, axis, mesh[0]), mesh)
+
+
+def move_rows(xs: Sequence[torch.Tensor], mesh: Mesh, axis: int,
+              rows_out: int, moves) -> list:
+    """A block move between two cuts of one axis over the mesh.
+
+    Shard r of ``xs`` holds the global rows [r c, (r + 1) c) of ``axis``;
+    shard r of the result holds the rows [r rows_out, (r + 1) rows_out) of
+    a new global axis, zero except where ``moves`` fills it: each move
+    (src, dst, count) copies the global input rows [src, src + count) to
+    the global output rows [dst, dst + count). Every piece goes straight
+    from the shard that holds it to the shard that receives it, so no
+    shard ever holds more than its own cut."""
+    _check(xs, mesh)
+    c = xs[0].shape[axis]
+    out = []
+    for t, dev in enumerate(mesh):
+        shape = list(xs[0].shape)
+        shape[axis] = rows_out
+        out.append(torch.zeros(shape, dtype=xs[0].dtype, device=dev))
+    for src, dst, count in moves:
+        for s, x in enumerate(xs):
+            lo, hi = max(src, s * c), min(src + count, (s + 1) * c)
+            if lo >= hi:
+                continue
+            for t in range(len(mesh)):
+                # the output rows of shard t that this piece lands on
+                d_lo = max(dst + lo - src, t * rows_out)
+                d_hi = min(dst + hi - src, (t + 1) * rows_out)
+                if d_lo >= d_hi:
+                    continue
+                piece = x.narrow(axis, d_lo - dst + src - s * c, d_hi - d_lo)
+                out[t].narrow(axis, d_lo - t * rows_out,
+                              d_hi - d_lo).copy_(piece)
+    return out
 
 
 def all_to_all(xs: Sequence[torch.Tensor], mesh: Mesh, split_axis: int,

@@ -1,5 +1,5 @@
 """Slab-decomposed PM step: grids and particles sharded in x over a mesh
-(PyTorch port of ``pysco_tpu/parallel/slab.py``, its FFT solvers).
+(PyTorch port of ``pysco_tpu/parallel/slab.py``).
 
 The grid is cut into x-slabs of ``M / D`` planes over a 1-D mesh
 (:mod:`.mesh`); shard r owns the particles whose mass-assignment base plane
@@ -31,9 +31,9 @@ synchronises with the host, so the shards of a mesh of distinct cards
 overlap. Force fields are component-leading, (3, P, M, M), as the tiled
 gather reads them.
 
-``linear_newton_solver = multigrid`` and ``theory = fr`` wait for the slab
-multigrid (``pysco_tpu/parallel/slab_mg.py``): :func:`make_slab_step` raises
-``NotImplementedError`` for them.
+Every theory (newton, parametrized, f(R) n = 1 and 2, QUMOND) and every
+solver (fft, fft_7pt, full_fft, and multigrid with V, F or W cycles through
+:mod:`.slab_mg`) runs on the slabs.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..integrate import StepDiagnostics, kick_drift
-from ..models import mond
+from ..models import cubic, laplacian, mond, quartic
 from ..ops import fourier, tiled_pm
 from ..ops import mesh as mesh_ops
 from ..solver import DynScalars, SolverConfig, _newton_rhs
@@ -54,13 +54,6 @@ from .mesh import Mesh
 F32 = torch.float32
 I32 = torch.int32
 _WIDTH = tiled_pm._WIDTH
-
-NEXT_SLICE = (
-    "the slab multigrid and FAS solvers (pysco_tpu/parallel/slab_mg.py) are "
-    "the port's next slice; slab mode runs linear_newton_solver = fft, "
-    "fft_7pt or full_fft with theory = newton, parametrized or mond"
-)
-
 
 # ---------------------------------------------------------------------------
 # Distributed pencil FFT and the k-space kernels on the pencil layout
@@ -80,8 +73,18 @@ def irfft3_slab(xk: list, mesh: Mesh, m: int, axis0: int = 0) -> list:
     (P, M, M). ``axis0 = 1`` takes a leading component axis along."""
     xk = [torch.fft.ifft(x, dim=axis0) for x in xk]
     xk = pmesh.all_to_all(xk, mesh, split_axis=axis0, concat_axis=axis0 + 1)
-    return [torch.fft.irfft(torch.fft.ifft(x, dim=axis0 + 1), n=m,
-                            dim=axis0 + 2).to(F32) for x in xk]
+    out = []
+    for x in xk:
+        x = torch.fft.ifft(x, dim=axis0 + 1)
+        # the real transform reads only the real part of its zero and
+        # Nyquist frequencies, as numpy's irfftn and cuFFT's 3-D one do;
+        # cuFFT's 1-D C2R reads the imaginary parts too, which a spectrum
+        # that is not Hermitian there (a gradient's Nyquist plane) has
+        x[..., 0].imag.zero_()
+        if m % 2 == 0:
+            x[..., -1].imag.zero_()
+        out.append(torch.fft.irfft(x, n=m, dim=axis0 + 2).to(F32))
+    return out
 
 
 def _wavenumbers_slab(m: int, ny_local: int, r: int, device):
@@ -264,6 +267,20 @@ def derivative_slab(phis: list, order: int, mesh: Mesh) -> list:
     return out
 
 
+def derivative_fR_slab(phis: list, us: list, f, fR_n: int, order: int,
+                       mesh: Mesh) -> list:
+    """f(R) force mesh on the slabs: grad(phi + f u^(fR_n+1)), f rounded to
+    float32 (``mesh.derivative_fR``)."""
+    f = float(np.float32(f))
+    if fR_n == 1:
+        combined = [phi + f * u * u for phi, u in zip(phis, us)]
+    elif fR_n == 2:
+        combined = [phi + f * u * u * u for phi, u in zip(phis, us)]
+    else:
+        raise NotImplementedError(f"fR_n must be 1 or 2, got {fR_n}")
+    return derivative_slab(combined, order, mesh)
+
+
 def mond_rhs_slab(phis: list, g0, mond_function: str, alpha,
                   mesh: Mesh) -> list:
     """QUMOND source on the slabs: a 2-plane halo exchange, then the
@@ -387,17 +404,28 @@ def grow_capacity(cap_new: int, position: list, velocity: list,
 
 
 def check_supported(cfg: SolverConfig) -> None:
-    """Raise for what slab mode does not run yet."""
-    if cfg.linear_newton_solver == "multigrid" or cfg.theory == "fr":
-        raise NotImplementedError(
-            f"parallel_mode='slab' with theory={cfg.theory!r}, "
-            f"linear_newton_solver={cfg.linear_newton_solver!r}: "
-            + NEXT_SLICE)
+    """Raise for an engine the slab step does not run."""
     if cfg.particle_engine != "pallas":
         raise NotImplementedError(
             f"particle_engine={cfg.particle_engine!r} with "
             "parallel_mode='slab': the slab step runs only 'pallas' (the "
             "tiled kernels; scatter is a single-device engine)")
+
+
+def _tolerance(dyn: DynScalars, error) -> np.float32:
+    """epsrel times a truncation error, in float32 (one host fetch)."""
+    return np.float32(dyn.epsrel) * np.float32(float(error))
+
+
+def _multigrid_solve(cfg: SolverConfig, rhs: list, x: list, dyn: DynScalars,
+                     mesh: Mesh) -> list:
+    """Linear slab multigrid solve of L(x) = rhs from the first guess x, to
+    epsrel times the truncation error of x (``solver._multigrid_solve``)."""
+    from . import slab_mg
+
+    tolerance = _tolerance(dyn, slab_mg.truncation_error_slab(x, mesh))
+    return slab_mg.linear_slab(x, rhs, cfg.ncoarse, cfg.Npre, cfg.Npost,
+                               tolerance, mesh, cfg.multigrid_cycle)
 
 
 def _fft_solve(cfg: SolverConfig, rhs: list, mesh: Mesh, m: int,
@@ -410,47 +438,107 @@ def _fft_solve(cfg: SolverConfig, rhs: list, mesh: Mesh, m: int,
     return irfft3_slab(phi_k, mesh, m)
 
 
+def _linear_solve_slab(cfg: SolverConfig, rhs: list, phi: list,
+                       dyn: DynScalars, mesh: Mesh, first_call: bool) -> list:
+    """The potential from the Poisson rhs (``solver._linear_solve``):
+    multigrid from the previous potential rescaled by the growth since its
+    step (a Jacobi first guess on the first call), or a pencil FFT solve."""
+    if cfg.linear_newton_solver == "multigrid":
+        if first_call:
+            phi = [laplacian.initialise_potential(r) for r in rhs]
+        else:
+            phi = [p * dyn.potential_scaling for p in phi]
+        return _multigrid_solve(cfg, rhs, phi, dyn, mesh)
+    return _fft_solve(cfg, rhs, mesh, cfg.ncells_1d,
+                      seven_point=cfg.linear_newton_solver == "fft_7pt")
+
+
+def _additional_field_slab(cfg: SolverConfig, density: list, u: list,
+                           dyn: DynScalars, mesh: Mesh,
+                           first_call: bool) -> list:
+    """The extra field of a modified theory on the slabs
+    (``solver._additional_field``): the f(R) scalaron by slab FAS; MOND's
+    Newtonian potential by slab multigrid or the exact 7-point FFT solve."""
+    from . import slab_mg
+
+    if cfg.theory == "fr":
+        dens_term = [dyn.fR_f1 * d + dyn.fR_f2 for d in density]
+        exact_root = cfg.fR_root_solver == "exact"
+        if cfg.fR_n == 1:
+            ops = slab_mg.fas_ops_cubic_slab(dyn.fR_q, mesh, exact_root)
+            init = cubic.initialise_potential
+        else:
+            ops = slab_mg.fas_ops_quartic_slab(dyn.fR_q, mesh, exact_root)
+            init = quartic.initialise_potential
+        if first_call:
+            u = [init(d, dyn.fR_q) for d in dens_term]
+        tolerance = _tolerance(dyn, ops.truncation_error(u, dens_term))
+        return slab_mg.FAS_slab(u, dens_term, ops, cfg.ncoarse, cfg.Npre,
+                                cfg.Npost, tolerance, mesh,
+                                cfg.multigrid_cycle)
+    if cfg.theory != "mond":
+        return u
+    rhs_newton = [_newton_rhs(d, dyn) for d in density]
+    if cfg.linear_newton_solver == "multigrid":
+        if first_call:
+            u = [laplacian.initialise_potential(r) for r in rhs_newton]
+        return _multigrid_solve(cfg, rhs_newton, u, dyn, mesh)
+    # the inner Newtonian solve is the discrete one whenever the solver is
+    # not multigrid
+    return _fft_solve(cfg, rhs_newton, mesh, cfg.ncells_1d, seven_point=True)
+
+
 def _solve_slab(cfg: SolverConfig, density: list, phi: list, u: list,
-                dyn: DynScalars, mesh: Mesh, save_pk: bool):
+                dyn: DynScalars, mesh: Mesh, save_pk: bool,
+                first_call: bool):
     """The field solve on the slabs (``solver._solve_fields``): optional
-    P(k), MOND's Newtonian potential, the Poisson solve, the force mesh.
-    Returns (force, phi, u, pk), force component-leading."""
+    P(k), the extra field, the Poisson solve, the force mesh. Returns
+    (force, phi, u, pk), force component-leading."""
     m = cfg.ncells_1d
     pk = None
     if save_pk:
         pk = power_spectrum_slab(rfft3_slab(density, mesh), mesh, m,
                                  cfg.mas_index)
-    rhs = [_newton_rhs(d, dyn) for d in density]
+    u = _additional_field_slab(cfg, density, u, dyn, mesh, first_call)
     if cfg.theory == "mond":
-        # the inner Newtonian solve is the discrete one whenever the solver
-        # is not multigrid
-        u = _fft_solve(cfg, rhs, mesh, m, seven_point=True)
         rhs = mond_rhs_slab(u, dyn.mond_g0, cfg.mond_function,
                             cfg.mond_alpha, mesh)
+    else:
+        rhs = [_newton_rhs(d, dyn) for d in density]
+    order = cfg.gradient_stencil_order
     if cfg.linear_newton_solver == "full_fft":
         force = gradient_inverse_laplacian_slab(rfft3_slab(rhs, mesh), mesh,
                                                 m, cfg.mas_index)
+        if cfg.theory == "fr":
+            force = [f + g for f, g in zip(force, derivative_fR_slab(
+                [torch.zeros_like(r) for r in rhs], u, dyn.fR_half_c2,
+                cfg.fR_n, order, mesh))]
         return force, phi, u, pk
-    phi = _fft_solve(cfg, rhs, mesh, m,
-                     seven_point=cfg.linear_newton_solver == "fft_7pt")
-    return derivative_slab(phi, cfg.gradient_stencil_order, mesh), phi, u, pk
+    phi = _linear_solve_slab(cfg, rhs, phi, dyn, mesh, first_call)
+    if cfg.theory == "fr":
+        force = derivative_fR_slab(phi, u, dyn.fR_half_c2, cfg.fR_n, order,
+                                   mesh)
+    else:
+        force = derivative_slab(phi, order, mesh)
+    return force, phi, u, pk
 
 
 def make_slab_step(cfg: SolverConfig, mesh: Mesh,
                    integrator: str = "leapfrog", save_pk: bool = False,
-                   presorted: int = 0, zbs: int | None = None):
+                   first_call: bool = False, presorted: int = 0,
+                   zbs: int | None = None):
     """Build the slab-sharded KDK step (``slab.make_slab_step``).
 
     State per shard: position, velocity and acceleration columns (4, C)
     with sentinel empties, the potential slab (M/D, M, M), the
-    additional-field slab (MOND's Newtonian potential; a token otherwise)
-    and the slab's tile starts. Returns ``fn(pos, vel, acc, phi, u,
-    tstarts, dyn, dt) -> (pos, vel, acc, phi, u, tstarts, pk, diag)`` over
+    additional-field slab (the f(R) scalaron, MOND's Newtonian potential;
+    a token otherwise) and the slab's tile starts. Returns ``fn(pos, vel,
+    acc, phi, u, tstarts, dyn, dt) -> (pos, vel, acc, phi, u, tstarts, pk,
+    diag)`` over
     lists of per-shard tensors; ``pk`` is None unless ``save_pk``; the
-    diagnostics are tensors on shard 0's device. The FFT solvers keep no
-    state between steps, so the first force evaluation is a zero-dt step
-    like any other (the JAX function's ``first_call`` comes back with the
-    multigrid).
+    diagnostics are tensors on shard 0's device. ``first_call=True``
+    starts the multigrid and FAS solves from their first guesses instead
+    of the previous fields: the initial force evaluation, a zero-dt step.
 
     ``presorted = k >= 1`` is the slab form of lazy re-binning: migration
     and the tile sort are skipped, the particles run through k-cell
@@ -514,7 +602,7 @@ def make_slab_step(cfg: SolverConfig, mesh: Mesh,
         density = [d * norm for d in add_spill(gp, planes, mesh, lead=drift)]
         del gp
         force, phi, u, pk = _solve_slab(cfg, density, phi, u, dyn, mesh,
-                                        save_pk)
+                                        save_pk, first_call)
         del density
         f_ext = halo_lr(force, drift, w - 1 + drift, mesh, axis=1)
         del force
@@ -608,8 +696,9 @@ def distribute_particles(mesh: Mesh, cfg: SolverConfig, position, velocity,
             )
         pos_all[:3, d * cap: d * cap + n_local] = position[sel].T
         vel_all[:3, d * cap: d * cap + n_local] = velocity[sel].T
-    # MOND keeps its Newtonian potential; the Newtonian theories a token
-    u_shape = (m, m, m) if cfg.theory == "mond" else (n_dev, 1, 1)
+    # f(R) keeps its scalaron and MOND its Newtonian potential; the
+    # Newtonian theories a token
+    u_shape = (m, m, m) if cfg.theory in ("fr", "mond") else (n_dev, 1, 1)
     nt_local = tiled_pm.n_tiles(m, zbs, planes) + 1
     return slab_state_from_numpy(
         mesh, pos_all, vel_all, np.zeros_like(pos_all),

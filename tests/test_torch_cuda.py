@@ -764,3 +764,98 @@ def test_fr_run_reproducible(cuda, tmp_path):
         np.testing.assert_array_equal(x, y)
     for x, y in zip(outs[0][1], outs[1][1]):
         np.testing.assert_array_equal(x, y)
+
+
+def test_slab_fas_and_ics_on_the_card_match_the_cpu(cuda, tmp_path,
+                                                    monkeypatch):
+    """On the mesh [cuda:0] * 4: a 32^3 slab FAS solve through slab levels
+    (REPLICATE_BELOW = 4) and the replicated coarse levels (the stencil
+    kernels), and 128^3 sharded 2LPT ICs, against the same calls on
+    [cpu] * 4 (the kernels' twins): the scalaron within 2e-5, the
+    particles within 5e-6 of the velocity scale."""
+    from pysco_tpu_torch import cosmo
+    from pysco_tpu_torch.models import cubic
+    from pysco_tpu_torch.parallel import ic_slab, slab, slab_mg
+    from pysco_tpu_torch.parallel import mesh as pmesh
+
+    n, q = 32, -2000.0
+    rng = np.random.default_rng(2)
+    u_star = (1.0 + 0.05 * rng.standard_normal((n, n, n))).astype(np.float32)
+    s = stencil.neighbour_sum(torch.as_tensor(u_star) ** 2).numpy()
+    h2 = 1.0 / n ** 2
+    b = (((s / 6.0) * u_star - u_star ** 3 - q * h2) / (h2 * u_star)).astype(
+        np.float32)
+    u0 = cubic.initialise_potential(torch.as_tensor(b), q)
+    got = {}
+    monkeypatch.setattr(slab_mg, "REPLICATE_BELOW", 4)
+    for dev in ("cuda:0", "cpu"):
+        mesh = pmesh.make_mesh(devices=[dev] * 4)
+        ops = slab_mg.fas_ops_cubic_slab(np.float32(q), mesh)
+        us = pmesh.scatter(u0, mesh, 0)
+        bs = pmesh.scatter(torch.as_tensor(b), mesh, 0)
+        tol = np.float32(1e-3) * np.float32(float(
+            ops.truncation_error(us, bs)))
+        stencil.reset_launches()
+        out = slab_mg.FAS_slab(us, bs, ops, 5, 2, 1, tol, mesh)
+        got[dev] = (torch.cat([x.cpu() for x in out]).numpy(),
+                    dict(stencil.LAUNCHES))
+    np.testing.assert_allclose(got["cuda:0"][0], got["cpu"][0], rtol=0,
+                               atol=2e-5)
+    assert got["cuda:0"][1]["scalaron_half_sweep"] > 0
+    assert got["cuda:0"][1]["restrict3"] > 0
+    assert not any(got["cpu"][1].values())
+
+    pk_file = str(tmp_path / "pk.dat")
+    write_power_spectrum_table(pk_file)
+    param = {
+        "theory": "newton", "H0": 72, "Om_m": 0.25733, "T_cmb": 2.726,
+        "N_eff": 3.044, "w0": -1.0, "wa": 0.0, "boxlen": 200,
+        "ncoarse": 7, "npart": 128 ** 3, "z_start": 49, "seed": 42,
+        "position_ICS": "center", "fixed_ICS": False, "paired_ICS": False,
+        "dealiased_ICS": True, "power_spectrum_file": pk_file,
+        "initial_conditions": "2LPT", "base": str(tmp_path),
+        "output_snapshot_format": "npz", "mass_scheme": "TSC",
+        "linear_newton_solver": "fft", "gradient_stencil_order": 5,
+        "Om_lambda": 0.74267, "Om_r": 0.0, "unit_l": 1.0, "unit_t": 1.0,
+        "particle_engine": "pallas", "write_initial_snapshot": False,
+        "parallel_mode": "slab", "aexp": 0.02,
+    }
+    tables = cosmo.generate(param)
+    rows = {}
+    for dev in ("cuda:0", "cpu"):
+        state = ic_slab.generate_lpt_slab(
+            param, tables, pmesh.make_mesh(devices=[dev] * 4))
+        rows[dev] = slab.gather_particles(state[0], state[1])
+    d = np.abs(rows["cuda:0"][0] - rows["cpu"][0])
+    assert np.minimum(d, 1.0 - d).max() < 5e-6
+    scale = np.abs(rows["cpu"][1]).max()
+    np.testing.assert_allclose(rows["cuda:0"][1], rows["cpu"][1], rtol=0,
+                               atol=5e-6 * scale + 5e-8)
+
+
+@pytest.mark.parametrize("n", [64, 128, 256])
+def test_irfft3_slab_matches_irfftn_on_the_card(cuda, n):
+    """The pencil inverse FFT on [cuda:0] * 4 against the 3-D irfftn on the
+    card, for spectra that are not Hermitian on the zero and Nyquist
+    planes (the spectral gradient of the sharded ICs, the full_fft force):
+    cuFFT's 1-D C2R reads the imaginary parts there unless they are
+    cleared (128^3 and 256^3 went wrong, 64^3 did not)."""
+    from pysco_tpu_torch.parallel import mesh as pmesh
+    from pysco_tpu_torch.parallel import slab
+
+    mesh = pmesh.make_mesh(devices=["cuda:0"] * 4)
+    x = torch.randn((n, n, n), generator=torch.Generator().manual_seed(1))
+    x = x.to(cuda)
+    xs = slab.rfft3_slab(pmesh.scatter(x, mesh, 0), mesh)
+    xk = fourier.rfft3(x)
+    for a in range(3):
+        got = torch.cat(slab.irfft3_slab(slab._per_pencil(
+            lambda p, ks: (fourier._TWOPI_I * p) * ks[a], xs, n), mesh, n))
+        want = fourier.irfft3(fourier.gradient_axis(xk, a))
+        assert float((got - want).abs().max()) <= 1e-5 * float(
+            want.abs().max()), a
+    got = torch.cat(slab.gradient_inverse_laplacian_slab(xs, mesh, n, 2),
+                    dim=1)
+    want = fourier.irfft3_vec(fourier.gradient_inverse_laplacian_compensated(
+        xk, 2)).movedim(-1, 0)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())

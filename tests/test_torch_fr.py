@@ -231,21 +231,6 @@ def test_packed_smoothing_matches_jax(name, exact_root, with_rhs):
     np.testing.assert_array_equal(got.numpy(), oracle.numpy())
 
 
-def test_scalaron_smoothing_hooks_use_the_injected_neighbour_sum():
-    u, b = _manufactured("cubic", n=8)
-    calls = []
-
-    def nsum(src, to_red):
-        calls.append(to_red)
-        return lap.packed_neighbour_sum(src, to_red)
-
-    got = lap.packed_scalaron_smoothing(
-        _t(u), _t(b), Q, 2, None, False, 2, cubic.solution_cubic_equation,
-        27.0, neighbour_sum=nsum)
-    assert calls == [True, False, True, False]
-    assert torch.equal(got, cubic.smoothing(_t(u), _t(b), Q, 2))
-
-
 @pytest.mark.parametrize("name", ["cubic", "quartic"])
 def test_newton_smoothing_tracks_exact(name):
     """tests/test_scalaron.py's bound through the port: the float32

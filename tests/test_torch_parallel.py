@@ -477,18 +477,19 @@ def test_run_slab_overflow_aborts_before_pk(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("overrides,match", [
     ({"particle_engine": "scatter"}, "runs only 'pallas'"),
-    ({"linear_newton_solver": "multigrid"}, "slab_mg.py"),
-    ({"theory": "fr", "fR_logfR0": 5, "fR_n": 1,
-      "linear_newton_solver": "multigrid"}, "slab_mg.py"),
+    ({"integrator": "rk4"}, "integrator 'rk4'"),
+    ({"theory": "fr", "fR_logfR0": 5, "fR_n": 3,
+      "linear_newton_solver": "multigrid"}, "fR_n=3"),
     ({"theory": "mond", "mond_g0": 1.2, "mond_function": "simple",
       "mond_scale_factor_exponent": 0, "mond_alpha": 1,
-      "linear_newton_solver": "multigrid"}, "slab_mg.py"),
+      "linear_newton_solver": "fft"}, "requires multigrid or fft_7pt"),
     ({"parallel_mode": "pencil"}, "should be 'single', 'replicated' or"),
 ])
 def test_run_slab_refuses(tmp_path, overrides, match):
-    """Slab mode runs the tiled engine and the FFT solvers; what waits for
-    the next slice raises and names it, and nothing runs a single-device
-    solve in its place."""
+    """Slab mode runs every theory and solver on the tiled engine; what it
+    does not run (another engine, an unknown integrator, theory or mode)
+    raises and names it, and nothing runs a single-device solve in its
+    place or writes a P(k)."""
     param = _run_param(tmp_path, "no", **overrides)
     with pytest.raises(NotImplementedError, match=match):
         pysco_tpu_torch.run(param, device="cpu", devices=["cpu"] * 4)

@@ -11,6 +11,7 @@ against the twins on the card by chip_smoke.py and tests/test_torch_cuda.py).
 One process, nothing spawned.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -345,6 +346,24 @@ def test_pencil_fft_roundtrip_and_rfftn(n_dev):
     back = torch.cat(slab.irfft3_slab(xk, mesh, M))
     torch.testing.assert_close(back, _t(x), rtol=0,
                                atol=1e-6 * float(np.abs(x).max()))
+
+
+@pytest.mark.parametrize("n_dev", [1, 4])
+def test_irfft3_slab_of_a_gradient(n_dev):
+    """A spectrum that is not Hermitian on its zero and Nyquist planes (a
+    spectral gradient: i k at k = -M/2 has no partner) goes back as
+    irfftn takes it: the imaginary parts there are not read. The pencil
+    transform clears them, since cuFFT's 1-D real transform would read
+    them (tests/test_torch_cuda.py holds it against irfftn on the card)."""
+    x = np.random.default_rng(5).standard_normal((M, M, M)).astype(np.float32)
+    mesh = _cpu_mesh(n_dev)
+    xk, xk1 = slab.rfft3_slab(_slabs(x, n_dev), mesh), fourier.rfft3(_t(x))
+    for a in range(3):
+        got = torch.cat(slab.irfft3_slab(slab._per_pencil(
+            lambda p, ks: (fourier._TWOPI_I * p) * ks[a], xk, M), mesh, M))
+        want = fourier.irfft3(fourier.gradient_axis(xk1, a))
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=1e-6 * float(want.abs().max()))
 
 
 @pytest.mark.parametrize("kernel", ["fft", "fft_7pt", "full_fft"])
@@ -807,9 +826,14 @@ def test_slab_step_counts_drift_violations_and_capacity():
                                                 ("fr", "fft"),
                                                 ("mond", "multigrid")])
 def test_slab_step_refuses_the_next_slice(theory, solver_name):
+    """The solvers and theories that once waited for the slab multigrid
+    build a slab step now (tests/test_torch_slab_mg.py runs them); what the
+    slab step still refuses is an engine other than the tiled one."""
     cfg, _ = _config(theory, solver_name, "tsc", 4096)
-    with pytest.raises(NotImplementedError, match="slab_mg.py"):
-        slab.make_slab_step(cfg, _cpu_mesh(4))
+    assert callable(slab.make_slab_step(cfg, _cpu_mesh(4), first_call=True))
+    scatter = dataclasses.replace(cfg, particle_engine="scatter")
+    with pytest.raises(NotImplementedError, match="runs only 'pallas'"):
+        slab.make_slab_step(scatter, _cpu_mesh(4))
 
 
 def test_slab_step_refuses_thin_slabs_and_odd_meshes():

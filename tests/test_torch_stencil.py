@@ -242,19 +242,6 @@ def test_smoothing_packed_matches_jax(n_smoothing, with_rhs):
     np.testing.assert_array_equal(got.numpy(), oracle.numpy())
 
 
-def test_smoothing_hooks_use_the_injected_neighbour_sum():
-    x, b, _ = _fields(8, 8)
-    calls = []
-
-    def nsum(src, to_red):
-        calls.append(to_red)
-        return lap.packed_neighbour_sum(src, to_red)
-
-    got = lap._smoothing_packed(_t(x), _t(b), 2, neighbour_sum=nsum)
-    assert calls == [True, False, True, False]
-    assert torch.equal(got, lap.smoothing(_t(x), _t(b), 2))
-
-
 def test_errors_and_operators_match_jax():
     x, b, rhs = _fields(16, 10)
     jx, jb = _j(x), _j(b)
