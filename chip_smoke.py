@@ -99,7 +99,22 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    ones); phase 7's configuration cut to z = 49 -> 30 in slab mode
    against a single-mode run of it (P(k) within 1e-4); the e2e rows of
    phases 6 and 9 in slab mode twice (bitwise equal, within 1e-4 of the
-   single-mode card runs).
+   single-mode card runs);
+15. the dense engine and the sort modes: the dense deposit and gather
+   (``particle_engine = dense``, no hand-written kernel: ``torch.bmm``)
+   at 64^3 and 128^3, NGP/CIC/TSC, against the tiled deposit kernel and
+   the scatter gather, bitwise the same in a second call and with global
+   TF32 on, an overflow counted on a clustered state, and their
+   CUDA-event times at 128^3 and 256^3 CIC beside their FLOP bounds (over
+   the padded rows the products run, and over the particles) and the
+   tiled kernels; the golden configuration with ``dense``, single and
+   replicated on ``[cuda:0] * 2`` (P(k) within 1e-4 of the golden file,
+   replicated within 1e-5 of single, no tiled or stencil kernel
+   launched); the four ``sort_mode`` values at 256^3 and 512^3 CIC on a
+   drifted and a random state (bitwise one result: the port sends all
+   four to one stable sort), its time beside that of the JAX package's
+   ``nearly`` route rebuilt here (two rounds of block sorts and a check,
+   else the full sort), which the port does not take.
 
 The last two lines of standard output are the kernels' JSON record (with
 each kernel's bound: the larger of its bytes over 3.35 TB/s and its
@@ -1216,19 +1231,26 @@ GOLDEN_PARAM = {
 }
 
 
-def phase_golden(np, tmp, mode="single", devices=None, tag="4 golden"):
-    """The golden configuration through run(), in any parallel mode."""
+def phase_golden(np, tmp, mode="single", devices=None, tag="4 golden",
+                 engine="pallas"):
+    """The golden configuration through run(), in any parallel mode and
+    with any particle engine, the launch counts zeroed just before and read
+    just after. Returns (worst P(k) difference, base, launches)."""
     import pysco_tpu_torch
     from pysco_tpu_torch.cosmo import write_power_spectrum_table
+    from pysco_tpu_torch.ops import stencil, tiled_pm
 
     pk_file = os.path.join(tmp, "pk.dat")
     write_power_spectrum_table(pk_file)
-    base = os.path.join(tmp, f"golden_{mode}")
+    base = os.path.join(tmp, f"golden_{mode}_{engine}")
     param = dict(GOLDEN_PARAM, power_spectrum_file=pk_file, base=base,
-                 parallel_mode=mode)
+                 parallel_mode=mode, particle_engine=engine)
+    tiled_pm.reset_launches()
+    stencil.reset_launches()
     t0 = time.perf_counter()
     recs = pysco_tpu_torch.run(param, device="cuda", devices=devices)
     wall = time.perf_counter() - t0
+    launches = {**tiled_pm.LAUNCHES, **stencil.LAUNCHES}
     with open(os.path.join(REPO, "tests", "golden_pk_32.json")) as f:
         golden = {k: np.array(v) for k, v in json.load(f).items()}
     got = sorted(os.listdir(os.path.join(base, "power")))
@@ -1243,10 +1265,11 @@ def phase_golden(np, tmp, mode="single", devices=None, tag="4 golden"):
         check(rel < 1e-4, f"golden {name}: max rel P(k) diff {rel:.2e}")
         worst = max(worst, rel)
     log(f"[{tag}] {mode}"
-        f"{' on ' + str(len(devices)) + ' shards' if devices else ''}: "
+        f"{' on ' + str(len(devices)) + ' shards' if devices else ''}"
+        f"{', ' + engine + ' engine' if engine != 'pallas' else ''}: "
         f"{len(recs)} steps in {wall:.2f} s; max rel P(k) diff "
         f"vs tests/golden_pk_32.json {worst:.2e} (bound 1e-4)")
-    return worst
+    return worst, base, launches
 
 
 def _check_launches(recs, names, tag):
@@ -2141,6 +2164,256 @@ def phase_slab_mg(torch, np, tmp, fr_ref):
     return launches
 
 
+def _dense_flops(n, m, scheme, ncomp=3):
+    """float32 operations of the dense engine's contractions, as
+    ((deposit, gather) over the cap rows a plane's products run,
+    (deposit, gather) over the n particles): per row a (W M) x M outer
+    product for the deposit, a (W M) x (M C) product and the z
+    contraction for the gather. Capacity rows past a plane's particles
+    are padding the engine multiplies by zero."""
+    from pysco_tpu_torch.ops import dense_pm
+
+    wm = dense_pm._WIDTH[scheme] * m
+    dep, gat = 2.0 * wm * m, 2.0 * wm * m * ncomp + 2.0 * m * ncomp
+    rows = m * dense_pm._capacity(n, m)
+    return (rows * dep, rows * gat), (n * dep, n * gat)
+
+
+def _dense_checks(torch, np, gen):
+    """Phase 15 (a): the dense transfers on the card against the tiled
+    deposit and the scatter gather; bitwise under a global TF32 setting
+    and in a second call; an overflow counted on a clustered state."""
+    from pysco_tpu_torch.ops import dense_pm, mesh, tiled_pm as tp
+
+    worst_d = worst_g = 0.0
+    for m in (64, 128):
+        n = m ** 3
+        field = torch.randn((m, m, m, 3), generator=gen, device="cuda")
+        for scheme in SCHEMES:
+            # a quarter of the particles in a cube of a quarter of the
+            # box's side: planes at 1.75 times the mean, inside capacity
+            pos, vel = _particles(torch, n, m, False, gen)
+            pos[: n // 4] = 0.25 + 0.25 * pos[: n // 4]
+            ps, vs, starts = dense_pm.sort_by_plane(pos, m, scheme, vel)
+            grid, overflow = dense_pm.deposit(ps, starts, m, scheme)
+            check(int(overflow) == 0, f"dense {m}^3 {scheme}: overflow "
+                  f"{int(overflow)}")
+            pc, vc = tp.to_columns(pos, vel, n)
+            pt, _, ts = tp.sort_particles(pc, vc, m, scheme)
+            want = tp.deposit(pt, ts, m, scheme)
+            err = float((grid - want).abs().max() / want.abs().max())
+            check(err < 1e-5, f"dense deposit {m}^3 {scheme} vs tiled: "
+                  f"{err:.2e}")
+            acc = dense_pm.gather_vec(field, ps, starts, scheme)
+            ref = mesh.gather_vec(field, ps, scheme)
+            gerr = float((acc - ref).abs().max() / field.abs().max())
+            check(gerr < 1e-5, f"dense gather {m}^3 {scheme} vs scatter: "
+                  f"{gerr:.2e}")
+            worst_d, worst_g = max(worst_d, err), max(worst_g, gerr)
+            # a second call and a global TF32 setting change no bit
+            check(torch.equal(dense_pm.deposit(ps, starts, m, scheme)[0],
+                              grid)
+                  and torch.equal(dense_pm.gather_vec(field, ps, starts,
+                                                      scheme), acc),
+                  f"dense {m}^3 {scheme}: a second call changed a bit")
+            flag = torch.backends.cuda.matmul.allow_tf32
+            try:
+                torch.backends.cuda.matmul.allow_tf32 = True
+                same = (torch.equal(dense_pm.deposit(ps, starts, m,
+                                                     scheme)[0], grid)
+                        and torch.equal(dense_pm.gather_vec(
+                            field, ps, starts, scheme), acc))
+                check(torch.backends.cuda.matmul.allow_tf32,
+                      "the dense engine did not restore TF32")
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = flag
+            check(same, f"dense {m}^3 {scheme}: TF32 on changed the result")
+    log(f"[15 dense] 64^3 and 128^3, NGP/CIC/TSC, clustered: deposit vs "
+        f"the tiled kernel max rel {worst_d:.2e}, gather vs the scatter "
+        f"gather max rel {worst_g:.2e} (bound 1e-5); bitwise the same "
+        "in a second call and with global TF32 on")
+    # every particle in 4 of 64 planes: far past the capacity
+    m = 64
+    pos, vel = _particles(torch, m ** 3, m, False, gen)
+    pos[:, 0] = pos[:, 0] * (4.0 / m)
+    ps, _, starts = dense_pm.sort_by_plane(pos, m, "cic", vel)
+    _, overflow = dense_pm.deposit(ps, starts, m, "cic")
+    counts = np.diff(starts.cpu().numpy().astype(np.int64))
+    want = int(np.maximum(counts - dense_pm._capacity(m ** 3, m), 0).sum())
+    check(int(overflow) == want > 0,
+          f"dense overflow {int(overflow)}, expected {want} > 0")
+    log(f"[15 dense] clustered 64^3 (4 planes): overflow {int(overflow)} "
+        "particles, as the plane counts give")
+
+
+def _dense_times(torch, gen):
+    """Phase 15 (a): CUDA-event times of the dense transfers at 128^3 and
+    256^3 CIC beside their FLOP bounds and the tiled kernels."""
+    from pysco_tpu_torch.ops import dense_pm, tiled_pm as tp
+
+    for m, reps in ((128, 3), (256, 2)):
+        n = m ** 3
+        pos, vel = _particles(torch, n, m, False, gen)
+        field = torch.randn((m, m, m, 3), generator=gen, device="cuda")
+        ps, vs, starts = dense_pm.sort_by_plane(pos, m, "cic", vel)
+        pc, vc = tp.to_columns(pos, vel, n)
+        pt, _, ts = tp.sort_particles(pc, vc, m, "cic")
+        field_cl = field.movedim(-1, 0).contiguous()
+        t_dep = time_ms(torch, lambda: dense_pm.deposit(ps, starts, m,
+                                                        "cic"), reps)
+        t_gat = time_ms(torch, lambda: dense_pm.gather_vec(field, ps, starts,
+                                                           "cic"), reps)
+        t_sort = time_ms(torch, lambda: dense_pm.sort_by_plane(pos, m, "cic",
+                                                               vel), reps)
+        k_dep = time_ms(torch, lambda: tp.deposit(pt, ts, m, "cic"))
+        k_gat = time_ms(torch, lambda: tp.gather_vec_cl(field_cl, pt, ts,
+                                                        "cic"))
+        padded, valid = _dense_flops(n, m, "cic")
+        parts = []
+        for name, t, i in (("deposit", t_dep, 0), ("gather", t_gat, 1)):
+            b_pad, b_val = (f[i] / F32_FLOPS_PER_S * 1e3
+                            for f in (padded, valid))
+            parts.append(
+                f"{name} {t:.2f} ms (bound {b_pad:.2f} ms over "
+                f"{padded[i]:.2e} FLOPs of padded rows, "
+                f"{100 * b_pad / t:.1f}%; {b_val:.2f} ms over "
+                f"{valid[i]:.2e} of the particles', {100 * b_val / t:.1f}%)")
+        log(f"[15 dense] {m}^3 CIC, {n} particles: " + ", ".join(parts)
+            + f", plane sort {t_sort:.2f} ms; the tiled kernels on the same "
+            f"particles: deposit {k_dep:.3f} ms, gather {k_gat:.3f} ms")
+        del ps, vs, pc, vc, pt, field, field_cl
+        torch.cuda.empty_cache()
+
+
+def _sort_state(torch, tp, m, scenario, gen):
+    """m^3 particles in column state: ``random``, or tile-sorted and then
+    moved up to 0.25 cell per axis, each keeping its side of the periodic
+    wrap of the x and y keys (a particle whose base cell would wrap keeps
+    that coordinate): such a particle's sorted place moves by at most about
+    one plane's n/m columns."""
+    n = m ** 3
+    pos, vel = _particles(torch, n, m, False, gen)
+    pc, vc = tp.to_columns(pos, vel, n)
+    del pos, vel
+    if scenario == "random":
+        return pc, vc
+    pc, vc, _ = tp.sort_particles(pc, vc, m, "cic")
+    moved = torch.remainder(pc[:3] + 0.25 / m * (
+        2 * torch.rand((3, n), generator=gen, device="cuda") - 1), 1.0)
+    for a in (0, 1):
+        k0, k1 = (tp._base_axis("cic", x * m) % m for x in (pc[a], moved[a]))
+        moved[a] = torch.where((k1 - k0).abs() > 1, pc[a], moved[a])
+    pc[:3] = moved
+    return pc, vc
+
+
+def _nearly_route(torch, tp, pc, vc, m, block=1 << 18):
+    """The JAX package's ``nearly`` sort route (``pallas_pm._nearly_sort``),
+    rebuilt here to time it; the port does not take it. With B the largest
+    power-of-two divisor of the column count capped at ``block``: when B
+    >= 4096 and the columns make two blocks or more, a stable sort of each
+    block of B tile keys, then of the half-shifted blocks, the two
+    permutations composed and the keys checked non-decreasing on the host;
+    else, or when the check fails, the full sort. Returns (pos, vel,
+    tile_starts, branch)."""
+    key = tp.tile_keys(pc, m, "cic")
+    n = key.shape[0]
+    big = min(block, n & -n)
+    h = big // 2
+
+    def blocks(k):
+        nb = k.shape[0] // big
+        sk, o = torch.sort(k.view(nb, big), dim=1, stable=True)
+        first = torch.arange(0, nb * big, big, device=k.device)
+        return sk.reshape(-1), (o + first.unsqueeze(1)).reshape(-1)
+
+    branch = "fallback"
+    if big >= 4096 and n // big >= 2:
+        k1, o1 = blocks(key)
+        k2, o2 = blocks(k1[h:n - h])
+        skey = torch.cat([k1[:h], k2, k1[n - h:]])
+        if bool(torch.all(skey[1:] >= skey[:-1])):
+            order = torch.cat([o1[:h], o1[h:n - h][o2], o1[n - h:]])
+            branch = "nearly"
+    if branch == "fallback":
+        skey, order = torch.sort(key, stable=True)
+    tiles = torch.arange(tp._geometry(m, "cic").ntiles + 1,
+                         dtype=skey.dtype, device=skey.device)
+    starts = torch.searchsorted(skey, tiles, side="left").to(torch.int32)
+    return (pc.index_select(1, order), vc.index_select(1, order), starts,
+            branch)
+
+
+def _sort_modes(torch, gen):
+    """Phase 15 (c): the four sort modes at 256^3 and 512^3 CIC on a
+    drifted and on a random state: bitwise one result (the port's one
+    stable sort), its time beside that of the JAX package's nearly route
+    rebuilt here, which must give the same bits, and take its block rounds
+    where the displacement bound says they hold: on the drifted state, a
+    particle that changes plane moves by about one plane's n/m columns,
+    and the rounds reach half a block."""
+    from pysco_tpu_torch.ops import tiled_pm as tp
+
+    for m in (256, 512):
+        n = m ** 3
+        for scenario in ("drifted", "random"):
+            pc, vc = _sort_state(torch, tp, m, scenario, gen)
+            cols = pc.shape[1]
+            big = min(1 << 18, cols & -cols)  # B of _nearly_route
+            holds = (scenario == "drifted" and big >= 4096
+                     and cols // big >= 2 and n // m < big // 2)
+            want = tp.sort_particles(pc, vc, m, "cic")
+            for mode in tp.SORT_MODES:
+                got = tp.sort_particles(pc, vc, m, "cic", mode=mode)
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"sort {m}^3 {scenario}: {mode} differs from full")
+                del got
+            *got, branch = _nearly_route(torch, tp, pc, vc, m)
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"sort {m}^3 {scenario}: the nearly route differs")
+            del got
+            expect = "nearly" if holds else "fallback"
+            check(branch == expect, f"sort {m}^3 {scenario}: the nearly "
+                  f"route took {branch}, expected {expect}")
+            t_port = time_ms(torch, lambda: tp.sort_particles(pc, vc, m,
+                                                              "cic"), 3)
+            t_nearly = time_ms(torch, lambda: _nearly_route(torch, tp, pc,
+                                                            vc, m), 3)
+            log(f"[15 sort] {m}^3 CIC {scenario}, {n} particles: the four "
+                f"modes bitwise equal, {t_port:.2f} ms; JAX's nearly route "
+                f"(B = {big}, {branch} branch) {t_nearly:.2f} ms, the same "
+                "bits")
+            del pc, vc, want
+            torch.cuda.empty_cache()
+
+
+def phase_dense_sort(torch, np, tmp):
+    """Phase 15: the dense engine and the sort modes."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(15)
+    _dense_checks(torch, np, gen)
+    _dense_times(torch, gen)
+
+    # (b) the golden configuration with the dense engine, single and
+    # replicated: no tiled or stencil kernel launches (the dense path has
+    # none), P(k) to the golden file and replicated to single
+    runs = {}
+    for mode, devices in (("single", None), ("replicated", ["cuda:0"] * 2)):
+        _, base, launches = phase_golden(np, tmp, mode, devices,
+                                         "15 golden", "dense")
+        check(not any(launches.values()),
+              f"dense {mode} run launched {launches}")
+        runs[mode] = _pk_files(np, base)
+    worst = _pk_worst(np, runs["replicated"], runs["single"], "15 golden")
+    check(worst <= 1e-5, f"dense replicated vs single P(k) {worst:.2e}")
+    log(f"[15 golden] dense replicated vs single max rel P(k) {worst:.2e} "
+        "(bound 1e-5); no tiled or stencil kernel launched")
+
+    _sort_modes(torch, gen)
+    log(f"[15] phase in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
     check(os.path.isdir(os.path.join(REPO, "pysco_tpu_torch")),
@@ -2176,6 +2449,7 @@ def main() -> int:
         phase_parallel(torch, np, tmp, main_base, main_stale, main_sorted)
         slab_launches = phase_slab_mg(torch, np, tmp, fr_ref)
         launches.update({k: slab_launches[k] for k in SLAB_KERNELS})
+        phase_dense_sort(torch, np, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     log(f"[done] all phases in {time.perf_counter() - t_start:.1f} s")

@@ -30,7 +30,7 @@ from . import integrate as integration
 from . import solver as solver_mod
 from .models import multigrid
 from .ops import mesh as mesh_ops
-from .ops import stencil, tiled_pm
+from .ops import cuda_build, stencil, tiled_pm
 from .parallel import ic_slab
 from .parallel import mesh as pmesh
 from .utils import io as iostream
@@ -198,7 +198,17 @@ def run(param, device="cuda", devices=None) -> list:
     Slab mode runs every theory and solver, and builds LPT initial
     conditions sharded on the mesh (``parallel/ic_slab.py``) whenever
     ``ic_slab.supported`` holds (else on the host, distributed by base
-    plane), as ``pysco_tpu.run`` does.
+    plane), as ``pysco_tpu.run`` does. Single and replicated mode run all
+    three particle engines (``pallas``, ``dense``, ``scatter``); slab mode
+    runs ``pallas`` only, and refuses the others. The lazy re-binning is
+    the tiled engine's; the dense engine sorts at every step and aborts on
+    a plane-capacity overflow, as in ``pysco_tpu``.
+
+    ``compile_cache`` is read for parity and changes nothing: the JAX
+    package's persistent XLA cache has its counterpart in the kernel
+    library built once under ``csrc/build`` (``ops/cuda_build.py``), its
+    file name tagged by the sources' content, which every later process
+    reuses.
 
     Differences from ``pysco_tpu.run``:
     - a step's overflow count (drift-bound violations, slab capacity) is
@@ -220,6 +230,9 @@ def run(param, device="cuda", devices=None) -> list:
     # full timings at verbose = 2: per-cycle multigrid residual lines and
     # per-step wall-clock at INFO; an earlier run's setting does not stay
     multigrid.set_residual_logging(verbose >= 2)
+    logging.info("compile_cache=%s: the kernel library under %s is built "
+                 "once and reused (the key changes nothing else)",
+                 param.get("compile_cache", "yes"), cuda_build.BUILD_DIR)
     param["write_snapshot"] = False
     param["extra"] = extra_name(param)
 
@@ -377,10 +390,13 @@ def run(param, device="cuda", devices=None) -> list:
         max_abs_acc, max_abs_vel = _finish_step(
             param, cfg, records, t_step0, presorted, diag,
             "lazy re-binning drift-bound violation (particles outside the "
-            "widened windows)", save_pk, pk)
+            "widened windows)" if lazy
+            else "dense particle engine plane-capacity overflow", save_pk,
+            pk)
         if (param["nsteps"] % int(param["n_reorder"]) == 0
-                and cfg.particle_engine != "pallas"):
-            # the tiled engine re-sorts at every force evaluation already
+                and cfg.particle_engine == "scatter"):
+            # the tiled and dense engines re-sort at every force
+            # evaluation already
             logging.info("Reordering particles")
             position, velocity, acceleration = mesh_ops.reorder_particles(
                 position, velocity, acceleration)
@@ -401,7 +417,8 @@ def _run_replicated(param, tables, cfg, integrator, pk_mode, position,
     """Replicated-grid run loop (``parallel/pm.py``): particles sharded
     over the mesh, field grids replicated, one sum of the deposited grids
     per force evaluation and everything else local. Every theory, solver
-    and engine of the single mode; a sort at every step."""
+    and engine of the single mode; a sort at every step, and an abort on
+    a dense-engine plane-capacity overflow."""
     from .parallel import pm as par_pm
 
     n_dev = len(mesh)
@@ -448,9 +465,9 @@ def _run_replicated(param, tables, cfg, integrator, pk_mode, position,
             pos_d, vel_d, acc_d, phi_d, u_d, dyn, dt)
         max_abs_acc, max_abs_vel = _finish_step(
             param, cfg, records, t_step0, 0, diag,
-            "particle engine overflow", save_pk, pk)
+            "dense particle engine plane-capacity overflow", save_pk, pk)
         if (param["nsteps"] % int(param["n_reorder"]) == 0
-                and cfg.particle_engine != "pallas"):
+                and cfg.particle_engine == "scatter"):
             logging.info("Reordering particles")
             for r in range(n_dev):  # each shard's rows, among themselves
                 pos_d[r], vel_d[r], acc_d[r] = mesh_ops.reorder_particles(

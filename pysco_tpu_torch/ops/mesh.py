@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import morton
+
 F32 = torch.float32
 I64 = torch.int64
 
@@ -241,28 +243,12 @@ def periodic_wrap(position: torch.Tensor) -> torch.Tensor:
     return torch.where((x >= 1) & (x < 1.5), x - 1.0, x)
 
 
-def _spread_bits_21(v: torch.Tensor) -> torch.Tensor:
-    """Spread the low 21 bits of v so they occupy every third bit."""
-    x = v.to(I64) & 0x1FFFFF
-    x = (x | (x << 32)) & 0x1F00000000FFFF
-    x = (x | (x << 16)) & 0x1F0000FF0000FF
-    x = (x | (x << 8)) & 0x100F00F00F00F00F
-    x = (x | (x << 4)) & 0x10C30C30C30C30C3
-    x = (x | (x << 2)) & 0x1249249249249249
-    return x
-
-
 def morton_keys(position: torch.Tensor) -> torch.Tensor:
     """Morton keys of (npart, 3) positions at 21 bits per axis, x the
-    most significant. The JAX package holds them in uint64; they have 63
-    bits, so int64 holds the same integers and sorts in the same order.
-    The cell is float32(position) * float32(2^21), the product formed in
-    float32, truncated and clipped to [0, 2^21 - 1]."""
-    scaled = torch.clamp((position.to(F32) * float(2 ** 21)).to(I64), 0,
-                         2 ** 21 - 1)
-    return ((_spread_bits_21(scaled[:, 0]) << 2)
-            | (_spread_bits_21(scaled[:, 1]) << 1)
-            | _spread_bits_21(scaled[:, 2]))
+    most significant (:func:`.morton.positions_to_keys`). The JAX package
+    holds them in uint64; they have 63 bits, so int64 holds the same
+    integers and sorts in the same order."""
+    return morton.positions_to_keys(position)
 
 
 def reorder_particles(position: torch.Tensor, *arrays):

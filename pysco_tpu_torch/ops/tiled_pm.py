@@ -48,6 +48,9 @@ _WIDTH = {"ngp": 1, "cic": 2, "tsc": 3}
 # forms under their own names; the CPU twins do not count
 LAUNCHES = {"deposit": 0, "gather": 0, "deposit_slab": 0, "gather_slab": 0}
 
+# the JAX package's sort_mode values; one route here (sort_particles)
+SORT_MODES = ("full", "nearly", "index", "nearly_index")
+
 # dynamic shared memory a block may opt into on Hopper (H100/H200)
 _SMEM_LIMIT = 232448
 # csrc/deposit.cu: particles staged per pass (256 threads x 2) and the
@@ -236,7 +239,8 @@ def tile_keys(position: torch.Tensor, ncells_1d: int, scheme: str,
 
 def sort_particles(position: torch.Tensor, velocity: torch.Tensor,
                    ncells_1d: int, scheme: str, zbs: int | None = None,
-                   plane0: int = 0, n_planes: int | None = None):
+                   plane0: int = 0, n_planes: int | None = None,
+                   mode: str = "full"):
     """Tile-sort the column state; returns (pos, vel, tile_starts).
 
     One stable sort of the tile key, then one permutation of each state
@@ -245,7 +249,16 @@ def sort_particles(position: torch.Tensor, velocity: torch.Tensor,
     ``lax.sort`` there is not stable. ``plane0`` and ``n_planes`` sort a
     slab's columns into its own tiles (:func:`tile_keys`): sentinels and
     foreign particles end up past ``tile_starts[-1]``.
+
+    ``mode`` is the JAX package's ``sort_mode``; every one of the four
+    takes the one stable sort and permutation here, so all four give
+    bitwise the same result. Torch has no multi-operand sort, so JAX's
+    ``full`` form is its ``index`` form, and the ``nearly`` forms' two
+    rounds of block sorts lost to the one sort on the H100 (see
+    ROADMAP.md, "Not ported"); an unknown mode is a ``ValueError``.
     """
+    if mode not in SORT_MODES:
+        raise ValueError(f"sort_mode={mode!r}, should be one of {SORT_MODES}")
     scheme = scheme.casefold()
     g = _geometry(ncells_1d, scheme, 0, zbs, n_planes)
     key = tile_keys(position, ncells_1d, scheme, zbs, plane0, n_planes)

@@ -2,8 +2,8 @@
 replicated (PyTorch port of ``pysco_tpu/parallel/pm.py``).
 
 - the particles are sharded over the mesh (:mod:`.mesh`): the tiled
-  engine's columns (4, N_up) by column blocks, the scatter engine's rows
-  (N, 3) by row blocks;
+  engine's columns (4, N_up) by column blocks, the dense and scatter
+  engines' rows (N, 3) by row blocks;
 - every shard sorts and deposits its particles into a full grid of its own,
   and the grids are summed in shard order (one ``psum``);
 - the field solve is the single-device one (``solver._solve_fields``), run
@@ -22,8 +22,8 @@ import torch
 
 from .. import solver as solver_mod
 from ..integrate import StepDiagnostics, kick_drift
+from ..ops import dense_pm, tiled_pm
 from ..ops import mesh as mesh_ops
-from ..ops import tiled_pm
 from ..solver import DynScalars, SolverConfig
 from . import mesh as pmesh
 from .mesh import Mesh
@@ -33,21 +33,34 @@ def _sharded_pm(cfg: SolverConfig, mesh: Mesh, first_call: bool,
                 save_pk: bool, position: list, velocity: list, potential: list,
                 u: list, dyn: DynScalars):
     """Deposit each shard -> psum -> replicated solve -> local gather.
-    Returns (position, velocity, acceleration, potential, u, pk) with pk
-    on shard 0's device."""
+    Returns (position, velocity, acceleration, potential, u, pk, overflow)
+    with pk and the summed dense-engine overflow on shard 0's device."""
     n = cfg.ncells_1d
-    tiled = cfg.particle_engine == "pallas"
+    engine = cfg.particle_engine
+    tiled = engine == "pallas"
     scheme = cfg.mass_scheme
-    if tiled:
-        srt = [tiled_pm.sort_particles(p, v, n, scheme)
-               for p, v in zip(position, velocity)]
+    overflow = 0  # a fresh tile sort puts every particle in its window
+    if engine == "scatter":
+        grids = [mesh_ops.deposit(p, n, scheme) for p in position]
+    else:
+        if tiled:
+            srt = [tiled_pm.sort_particles(p, v, n, scheme,
+                                           mode=cfg.sort_mode)
+                   for p, v in zip(position, velocity)]
+        else:
+            srt = [dense_pm.sort_by_plane(p, n, scheme, v)
+                   for p, v in zip(position, velocity)]
         position = [s[0] for s in srt]
         velocity = [s[1] for s in srt]
-        tstarts = [s[2] for s in srt]
-        grids = [tiled_pm.deposit(p, t, n, scheme)
-                 for p, t in zip(position, tstarts)]
-    else:
-        grids = [mesh_ops.deposit(p, n, scheme) for p in position]
+        starts = [s[2] for s in srt]
+        if tiled:
+            grids = [tiled_pm.deposit(p, t, n, scheme)
+                     for p, t in zip(position, starts)]
+        else:
+            dep = [dense_pm.deposit(p, t, n, scheme)
+                   for p, t in zip(position, starts)]
+            grids = [d[0] for d in dep]
+            overflow = pmesh.psum([d[1] for d in dep], mesh)[0]
     density = pmesh.psum(grids, mesh)
     del grids
     # one solve per device of the mesh, on identical data; the shards of a
@@ -66,23 +79,27 @@ def _sharded_pm(cfg: SolverConfig, mesh: Mesh, first_call: bool,
     pk = solved[mesh[0]][3]
     if tiled:
         acc = [tiled_pm.gather_vec_cl(f, p, t, scheme)
-               for f, p, t in zip(force, position, tstarts)]
+               for f, p, t in zip(force, position, starts)]
+    elif engine == "dense":
+        acc = [dense_pm.gather_vec(f, p, t, scheme)
+               for f, p, t in zip(force, position, starts)]
     else:
         acc = [mesh_ops.gather_vec(f, p, scheme)
                for f, p in zip(force, position)]
-    return position, velocity, acc, potential, u, pk
+    return position, velocity, acc, potential, u, pk, overflow
 
 
 def check_shardable(cfg: SolverConfig, n_dev: int) -> None:
     """The tiled engine's column state must split into Q-aligned shards,
-    the scatter engine's rows evenly."""
+    the row engines' (dense, scatter) rows evenly."""
     if cfg.particle_engine == "pallas":
         if tiled_pm.padded_cols(cfg.npart) % (n_dev * tiled_pm.Q):
             raise ValueError(
                 f"npart={cfg.npart}: the column state must split into "
                 f"Q={tiled_pm.Q}-aligned shards on {n_dev} devices; pick "
                 "npart a multiple of Q * n_devices or use "
-                "particle_engine='scatter'"
+                "particle_engine='scatter' (or 'dense', the slower one "
+                "on a GPU)"
             )
     elif cfg.npart % n_dev:
         raise ValueError(
@@ -109,9 +126,9 @@ def make_sharded_step(cfg: SolverConfig, mesh: Mesh,
         position = [m[0] for m in moved]
         velocity = [m[1] for m in moved]
         last_kick = moved[0][2]
-        position, velocity, acceleration, potential, u, pk = _sharded_pm(
-            cfg, mesh, first_call, save_pk, position, velocity, potential, u,
-            dyn)
+        (position, velocity, acceleration, potential, u, pk,
+         overflow) = _sharded_pm(cfg, mesh, first_call, save_pk, position,
+                                 velocity, potential, u, dyn)
         if last_kick:
             velocity = [v - a * last_kick
                         for v, a in zip(velocity, acceleration)]
@@ -122,7 +139,7 @@ def make_sharded_step(cfg: SolverConfig, mesh: Mesh,
                 [torch.max(torch.abs(v)) for v in velocity], mesh)[0],
             mean_additional=pmesh.pmean(
                 [torch.mean(x) for x in u], mesh)[0],
-            overflow=0,  # a fresh sort puts every particle in its window
+            overflow=overflow,
         )
         return position, velocity, acceleration, potential, u, pk, diag
 

@@ -409,7 +409,7 @@ def check_supported(cfg: SolverConfig) -> None:
         raise NotImplementedError(
             f"particle_engine={cfg.particle_engine!r} with "
             "parallel_mode='slab': the slab step runs only 'pallas' (the "
-            "tiled kernels; scatter is a single-device engine)")
+            "tiled kernels; scatter and dense are single-device engines)")
 
 
 def _tolerance(dyn: DynScalars, error) -> np.float32:
@@ -588,7 +588,8 @@ def make_slab_step(cfg: SolverConfig, mesh: Mesh,
             position, velocity, lost = migrate(
                 position, velocity, m, planes, cap_mig, mesh, scheme)
             srt = [tiled_pm.sort_particles(position[r], velocity[r], m,
-                                           scheme, zbs, r * planes, planes)
+                                           scheme, zbs, r * planes, planes,
+                                           mode=cfg.sort_mode)
                    for r in shards]
             position = [s[0][:, :cap].contiguous() for s in srt]
             velocity = [s[1][:, :cap].contiguous() for s in srt]

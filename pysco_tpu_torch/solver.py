@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from .models import cubic, laplacian, mond, multigrid, quartic
-from .ops import fourier, mesh, tiled_pm
+from .ops import dense_pm, fourier, mesh, tiled_pm
 from .utils.units import C_KMS
 
 F32 = torch.float32
@@ -67,9 +67,13 @@ class SolverConfig:
     mond_function: str = "simple"
     mond_alpha: float = 1.0
     # "pallas": tile-sorted column state through ops/tiled_pm.py (the
-    # CUDA kernels on the card); "scatter": row particles through the
-    # index_add deposit of ops/mesh.py
+    # CUDA kernels on the card); "dense": row particles sorted by x-plane
+    # through the one-hot matrix products of ops/dense_pm.py; "scatter":
+    # row particles through the index_add deposit of ops/mesh.py
     particle_engine: str = "pallas"
+    # the tiled engine's sort (tiled_pm.sort_particles): "full", "index",
+    # "nearly" or "nearly_index"; every mode gives the same sorted state
+    sort_mode: str = "full"
     pm_precision: str = "bf16x3"
     pm_precision_widened: str = "bf16-gather"
     # largest lazy re-binning window (cells) before the run loop re-sorts
@@ -101,6 +105,7 @@ def config_from_param(param) -> SolverConfig:
         mond_function=str(get("mond_function", "simple")).casefold(),
         mond_alpha=float(get("mond_alpha", 1.0)),
         particle_engine=str(get("particle_engine", "pallas")).casefold(),
+        sort_mode=str(get("sort_mode", "full")).casefold(),
         pm_precision=str(get("pm_precision", "bf16x3")).casefold(),
         pm_precision_widened=str(
             get("pm_precision_widened", "bf16-gather")).casefold(),
@@ -135,11 +140,14 @@ def config_from_param(param) -> SolverConfig:
         raise NotImplementedError(
             f"mass scheme {cfg.mass_scheme!r}, should be NGP, CIC or TSC"
         )
-    if cfg.particle_engine not in ("pallas", "scatter"):
+    if cfg.particle_engine not in ("pallas", "dense", "scatter"):
         raise NotImplementedError(
-            f"particle_engine={cfg.particle_engine!r}: the PyTorch port "
-            "runs 'pallas' (tiled kernels) and 'scatter'"
+            f"particle_engine={cfg.particle_engine!r}, should be 'pallas' "
+            "(tiled kernels), 'dense' or 'scatter'"
         )
+    if cfg.sort_mode not in tiled_pm.SORT_MODES:
+        raise ValueError(f"sort_mode={cfg.sort_mode!r}, should be one of "
+                         f"{tiled_pm.SORT_MODES}")
     for key in ("pm_precision", "pm_precision_widened"):
         if getattr(cfg, key) not in _PM_PRECISIONS:
             raise ValueError(f"{key}={getattr(cfg, key)!r}: expected one of "
@@ -363,29 +371,40 @@ def pm(cfg: SolverConfig, first_call: bool, save_pk: bool, position,
     The tiled engine takes the particles in (4, N_up) column layout
     (``tiled_pm.to_columns`` or :func:`state_from_arrays` make it from
     rows) and returns them tile-sorted, velocity riding along (None is
-    zero velocity). The scatter engine keeps (npart, 3) rows in their
-    order.
+    zero velocity). The dense engine takes (npart, 3) rows and returns
+    them sorted by x-plane, ``overflow`` its count of particles past a
+    plane's capacity. The scatter engine keeps (npart, 3) rows in their
+    order. A fresh tile sort puts every particle in its window, so the
+    other two engines' ``overflow`` is 0.
     """
     n = cfg.ncells_1d
+    scheme = cfg.mass_scheme
     if velocity is None:
         velocity = torch.zeros_like(position)
+    overflow = 0
     if cfg.particle_engine == "pallas":
         position, velocity, tstarts = tiled_pm.sort_particles(
-            position, velocity, n, cfg.mass_scheme
-        )
-        density = _normalise(cfg, tiled_pm.deposit(
-            position, tstarts, n, cfg.mass_scheme))
+            position, velocity, n, scheme, mode=cfg.sort_mode)
+        density = _normalise(cfg, tiled_pm.deposit(position, tstarts, n,
+                                                   scheme))
         force, potential, u, pk = _solve_fields(
             cfg, first_call, save_pk, density, potential, u, dyn,
             leading=True)
         acceleration = tiled_pm.gather_vec_cl(force, position, tstarts,
-                                              cfg.mass_scheme)
+                                              scheme)
+    elif cfg.particle_engine == "dense":
+        position, velocity, starts = dense_pm.sort_by_plane(
+            position, n, scheme, velocity)
+        density, overflow = dense_pm.deposit(position, starts, n, scheme)
+        force, potential, u, pk = _solve_fields(
+            cfg, first_call, save_pk, _normalise(cfg, density), potential,
+            u, dyn)
+        acceleration = dense_pm.gather_vec(force, position, starts, scheme)
     else:
-        density = _normalise(cfg, mesh.deposit(position, n, cfg.mass_scheme))
+        density = _normalise(cfg, mesh.deposit(position, n, scheme))
         force, potential, u, pk = _solve_fields(
             cfg, first_call, save_pk, density, potential, u, dyn)
-        acceleration = mesh.gather_vec(force, position, cfg.mass_scheme)
-    overflow = 0  # a fresh sort puts every particle in its window
+        acceleration = mesh.gather_vec(force, position, scheme)
     return position, velocity, acceleration, potential, u, pk, overflow
 
 
@@ -410,8 +429,7 @@ def _pm_lazy_impl(cfg: SolverConfig, presorted: int, save_pk: bool,
                                              drift)
     else:
         position, velocity, tstarts = tiled_pm.sort_particles(
-            position, velocity, n, scheme
-        )
+            position, velocity, n, scheme, mode=cfg.sort_mode)
         drift = 0
         overflow = 0
     density = _normalise(cfg, tiled_pm.deposit(position, tstarts, n, scheme,

@@ -207,6 +207,7 @@ def _real_rows(cfg, *arrays):
     ("fr", "multigrid", "pallas", 4),
     ("mond", "multigrid", "scatter", 4),
     ("mond", "fft_7pt", "pallas", 1),
+    ("newton", "fft", "dense", 2),
 ])
 def test_replicated_step_matches_jax_and_single(theory, solver_name, engine,
                                                 n_dev):

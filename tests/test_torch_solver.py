@@ -234,7 +234,7 @@ def test_unsupported_configs_raise():
                       "multigrid or fft_7pt"),
                      (dict(linear_newton_solver="sor"),
                       "linear_newton_solver"),
-                     (dict(particle_engine="dense"), "particle_engine")):
+                     (dict(particle_engine="cloud"), "particle_engine")):
         with pytest.raises(NotImplementedError, match=what):
             solver.config_from_param(_param(**kw))
     with pytest.raises(ValueError, match="pm_precision_widened"):
