@@ -26,6 +26,7 @@ from typing import List
 import numpy as np
 from scipy.integrate import cumulative_trapezoid, solve_ivp
 
+from .utils import profiling
 from .utils.units import C_SI, G_SI, PC_M, SIGMA_SB
 
 
@@ -110,8 +111,14 @@ class Table1D:
 
 def generate(param) -> List[Table1D]:
     """Build the 13 background/growth interpolators and write the
-    evolution table, mirroring ``cosmotable.generate`` (cosmotable.py:18).
+    evolution table, mirroring ``cosmotable.generate`` (cosmotable.py:18);
+    the seconds go into ``profiling.PHASES["cosmo.generate"]``.
     """
+    with profiling.phase("cosmo.generate"):
+        return _generate(param)
+
+
+def _generate(param) -> List[Table1D]:
     cosmo = FlatW0WaCDM(
         H0=float(param["H0"]),
         Om0=float(param["Om_m"]),

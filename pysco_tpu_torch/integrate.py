@@ -19,6 +19,7 @@ import torch
 from . import solver as solver_mod
 from .ops import mesh
 from .solver import DynScalars, SolverConfig
+from .utils import profiling
 
 
 class StepDiagnostics(NamedTuple):
@@ -34,6 +35,15 @@ def _diagnostics(acc, vel, u, overflow) -> StepDiagnostics:
                            overflow)
 
 
+def _close(acceleration, velocity, u, overflow, last_kick):
+    """The part of a step after its force evaluation: leapfrog's closing
+    half kick and the diagnostics."""
+    with profiling.span("step.close"):
+        if last_kick:
+            velocity = velocity - acceleration * last_kick
+        return velocity, _diagnostics(acceleration, velocity, u, overflow)
+
+
 def _half_dt(dt) -> tuple[float, float]:
     """dt and dt/2 rounded to float32, as the JAX step computes them."""
     dt = np.float32(dt)
@@ -47,13 +57,14 @@ def kick_drift(integrator: str, position, velocity, acceleration, dt):
     closing half kick is ``velocity - acceleration * last_kick`` with the
     new acceleration; Euler has none (0.0)."""
     dt, half_dt = _half_dt(dt)
-    if integrator == "leapfrog":
-        velocity = velocity - acceleration * half_dt
-        position = mesh.periodic_wrap(position + velocity * dt)
-        return position, velocity, half_dt
-    if integrator == "euler":
-        position = mesh.periodic_wrap(position + velocity * dt)
-        return position, velocity - acceleration * dt, 0.0
+    with profiling.span("step.kick_drift"):
+        if integrator == "leapfrog":
+            velocity = velocity - acceleration * half_dt
+            position = mesh.periodic_wrap(position + velocity * dt)
+            return position, velocity, half_dt
+        if integrator == "euler":
+            position = mesh.periodic_wrap(position + velocity * dt)
+            return position, velocity - acceleration * dt, 0.0
     raise NotImplementedError(
         f"integrator {integrator!r}, must be 'leapfrog' or 'euler'"
     )
@@ -66,14 +77,14 @@ def step_impl(cfg: SolverConfig, integrator: str, first_call: bool,
     acceleration, potential, u, pk, diagnostics). ``first_call`` starts
     the multigrid solves from a Jacobi guess (the run loop passes False:
     its first force evaluation comes before the loop)."""
-    position, velocity, last_kick = kick_drift(
-        integrator, position, velocity, acceleration, dt)
-    (position, velocity, acceleration, potential, u, pk,
-     overflow) = solver_mod.pm(cfg, first_call, save_pk, position,
-                               velocity, potential, u, dyn)
-    if last_kick:
-        velocity = velocity - acceleration * last_kick
-    diag = _diagnostics(acceleration, velocity, u, overflow)
+    with profiling.step_span(position):
+        position, velocity, last_kick = kick_drift(
+            integrator, position, velocity, acceleration, dt)
+        (position, velocity, acceleration, potential, u, pk,
+         overflow) = solver_mod.pm(cfg, first_call, save_pk, position,
+                                   velocity, potential, u, dyn)
+        velocity, diag = _close(acceleration, velocity, u, overflow,
+                                last_kick)
     return position, velocity, acceleration, potential, u, pk, diag
 
 
@@ -84,15 +95,15 @@ def step_lazy_impl(cfg: SolverConfig, integrator: str, presorted: int,
     (:func:`solver._pm_lazy_impl`): ``presorted = k >= 1`` skips the sort
     and uses k-cell drift-widened windows. Returns (position, velocity,
     acceleration, potential, u, tstarts, pk, diagnostics)."""
-    position, velocity, last_kick = kick_drift(
-        integrator, position, velocity, acceleration, dt)
-    (position, velocity, tstarts, acceleration, potential, u, pk,
-     overflow) = solver_mod._pm_lazy_impl(
-        cfg, presorted, save_pk, position, velocity, tstarts, potential,
-        u, dyn)
-    if last_kick:
-        velocity = velocity - acceleration * last_kick
-    diag = _diagnostics(acceleration, velocity, u, overflow)
+    with profiling.step_span(position):
+        position, velocity, last_kick = kick_drift(
+            integrator, position, velocity, acceleration, dt)
+        (position, velocity, tstarts, acceleration, potential, u, pk,
+         overflow) = solver_mod._pm_lazy_impl(
+            cfg, presorted, save_pk, position, velocity, tstarts, potential,
+            u, dyn)
+        velocity, diag = _close(acceleration, velocity, u, overflow,
+                                last_kick)
     return (position, velocity, acceleration, potential, u, tstarts, pk,
             diag)
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..ops import mesh, stencil
+from ..utils import profiling
 from . import cubic as cubic_mod
 from . import laplacian as lap
 from . import quartic as quartic_mod
@@ -144,38 +145,46 @@ def _coarsest(level: int, ncoarse: int) -> bool:
     return level >= ncoarse - 3
 
 
+def _smooth(x, b, n, level):
+    """``n`` red-black sweeps of the Laplacian on grid ``level``."""
+    with profiling.span("mg.smooth", level):
+        return lap.smoothing(x, b, n)
+
+
 def _coarse_correction(x, b, ncoarse, Npre, Npost, level, recurse):
     """Restrict the residual, solve the coarse problem (smoothing on the
     coarsest level, ``recurse`` above it) and add its prolongation."""
-    res_c = lap.restrict_residual(x, b)
-    x_c = lap.initialise_potential(res_c)
+    with profiling.span("mg.restrict", level):
+        res_c = lap.restrict_residual(x, b)
+        x_c = lap.initialise_potential(res_c)
     if _coarsest(level, ncoarse):
-        x_c = lap.smoothing(x_c, res_c, Npre)
+        x_c = _smooth(x_c, res_c, Npre, level + 1)
     else:
         x_c = recurse(x_c, res_c, ncoarse, Npre, Npost, level + 1)
-    return mesh.add_prolongation(x, x_c)
+    with profiling.span("mg.prolong", level):
+        return mesh.add_prolongation(x, x_c)
 
 
 def V_cycle(x, b, ncoarse: int, Npre: int, Npost: int, level: int = 0):
-    x = lap.smoothing(x, b, Npre)
+    x = _smooth(x, b, Npre, level)
     x = _coarse_correction(x, b, ncoarse, Npre, Npost, level, V_cycle)
-    return lap.smoothing(x, b, Npost)
+    return _smooth(x, b, Npost, level)
 
 
 def F_cycle(x, b, ncoarse: int, Npre: int, Npost: int, level: int = 0):
-    x = lap.smoothing(x, b, Npre)
+    x = _smooth(x, b, Npre, level)
     x = _coarse_correction(x, b, ncoarse, Npre, Npost, level, F_cycle)
-    x = lap.smoothing(x, b, Npre)
+    x = _smooth(x, b, Npre, level)
     x = _coarse_correction(x, b, ncoarse, Npre, Npost, level, V_cycle)
-    return lap.smoothing(x, b, Npost)
+    return _smooth(x, b, Npost, level)
 
 
 def W_cycle(x, b, ncoarse: int, Npre: int, Npost: int, level: int = 0):
     for last in (False, True):
-        x = lap.smoothing(x, b, Npre)
+        x = _smooth(x, b, Npre, level)
         x = _coarse_correction(x, b, ncoarse, Npre, Npost, level, W_cycle)
         if last:
-            x = lap.smoothing(x, b, Npost)
+            x = _smooth(x, b, Npost, level)
     return x
 
 
@@ -191,7 +200,9 @@ def _converge(x, b, cycle_fn, error_fn, tolerance, fas: bool = False):
         x = cycle_fn(x, b)
         STATS["cycles"] += 1
         STATS["fas_cycles"] += int(fas)
-        err = np.float32(float(error_fn(x, b)))
+        with profiling.span("mg.residual"):
+            err = np.float32(float(error_fn(x, b)))
+        profiling.count("host_syncs")
         if LOG_RESIDUALS:
             logging.info("multigrid: cycle %d residual error %.3e "
                          "(tolerance %.3e)", it, err, tol)
@@ -221,46 +232,54 @@ def _fas_correction(x, b, ops: FASOps, ncoarse, Npre, Npost, level, rhs,
     """FAS coarse-grid correction: restrict, tau-correct, solve the coarse
     problem, add the prolongation of its change. ``b_c`` reuses the
     coarse source of an earlier leg (the F-cycle's second leg)."""
-    res_c, x_c, b_c_new = ops.restrict_all(x, b, rhs)
-    b_c = b_c_new if b_c is None else b_c
-    res_c = 4.0 * res_c + ops.operator(x_c, b_c)
+    with profiling.span("mg.restrict", level):
+        res_c, x_c, b_c_new = ops.restrict_all(x, b, rhs)
+        b_c = b_c_new if b_c is None else b_c
+        res_c = 4.0 * res_c + ops.operator(x_c, b_c)
     if _coarsest(level, ncoarse):
-        x_corr_c = ops.smoothing(x_c, b_c, Npre, res_c)
+        x_corr_c = _smooth_fas(ops, x_c, b_c, Npre, res_c, level + 1)
     else:
         x_corr_c = recurse(x_c, b_c, ops, ncoarse, Npre, Npost, level + 1,
                            res_c)
-    return mesh.add_prolongation(x, x_corr_c - x_c), b_c
+    with profiling.span("mg.prolong", level):
+        return mesh.add_prolongation(x, x_corr_c - x_c), b_c
+
+
+def _smooth_fas(ops: FASOps, x, b, n, rhs, level):
+    """``n`` sweeps of the FAS operator set on grid ``level``."""
+    with profiling.span("mg.smooth", level):
+        return ops.smoothing(x, b, n, rhs)
 
 
 def V_cycle_FAS(x, b, ops: FASOps, ncoarse: int, Npre: int, Npost: int,
                 level: int = 0, rhs: Optional[torch.Tensor] = None):
-    x = ops.smoothing(x, b, Npre, rhs)
+    x = _smooth_fas(ops, x, b, Npre, rhs, level)
     x, _ = _fas_correction(x, b, ops, ncoarse, Npre, Npost, level, rhs,
                            V_cycle_FAS)
-    return ops.smoothing(x, b, Npost, rhs)
+    return _smooth_fas(ops, x, b, Npost, rhs, level)
 
 
 def F_cycle_FAS(x, b, ops: FASOps, ncoarse: int, Npre: int, Npost: int,
                 level: int = 0, rhs: Optional[torch.Tensor] = None):
     """FAS F-cycle: an F-recursion first leg, then a V-cycle second leg,
     Npre smoothing between legs."""
-    x = ops.smoothing(x, b, Npre, rhs)
+    x = _smooth_fas(ops, x, b, Npre, rhs, level)
     x, b_c = _fas_correction(x, b, ops, ncoarse, Npre, Npost, level, rhs,
                              F_cycle_FAS)
-    x = ops.smoothing(x, b, Npre, rhs)
+    x = _smooth_fas(ops, x, b, Npre, rhs, level)
     x, _ = _fas_correction(x, b, ops, ncoarse, Npre, Npost, level, rhs,
                            V_cycle_FAS, b_c)
-    return ops.smoothing(x, b, Npost, rhs)
+    return _smooth_fas(ops, x, b, Npost, rhs, level)
 
 
 def W_cycle_FAS(x, b, ops: FASOps, ncoarse: int, Npre: int, Npost: int,
                 level: int = 0, rhs: Optional[torch.Tensor] = None):
     for last in (False, True):
-        x = ops.smoothing(x, b, Npre, rhs)
+        x = _smooth_fas(ops, x, b, Npre, rhs, level)
         x, _ = _fas_correction(x, b, ops, ncoarse, Npre, Npost, level, rhs,
                                W_cycle_FAS)
         if last:
-            x = ops.smoothing(x, b, Npost, rhs)
+            x = _smooth_fas(ops, x, b, Npost, rhs, level)
     return x
 
 

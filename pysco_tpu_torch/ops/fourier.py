@@ -17,6 +17,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 F32 = torch.float32
 
 
@@ -193,11 +195,18 @@ def _pk_bins(n: int, device, y0: int = 0, ny: int | None = None) -> _PkBins:
     host once per (n, device); with ``y0`` and ``ny`` that of the pencil
     (n, ny, n//2+1) holding the y rows from ``y0`` on (the slab mode's
     layout; ``k`` is then the pencil's sum of |k| per bin, float64, and
-    ``nmodes`` its own count, for the shards' sums to be added)."""
-    pencil = ny is not None
+    ``nmodes`` its own count, for the shards' sums to be added). A table
+    built, not found, puts its seconds into ``profiling.PHASES["pk_bins"]``.
+    """
     key = (n, str(device), y0, ny)
-    if key in _PK_BINS:
-        return _PK_BINS[key]
+    if key not in _PK_BINS:
+        with profiling.phase("pk_bins"):
+            _PK_BINS[key] = _build_pk_bins(n, device, y0, ny)
+    return _PK_BINS[key]
+
+
+def _build_pk_bins(n: int, device, y0: int, ny: int | None) -> _PkBins:
+    pencil = ny is not None
     kx, ky, kz = _wavenumbers(n, "cpu")
     if pencil:
         ky = ky[:, y0:y0 + ny]
@@ -223,9 +232,7 @@ def _pk_bins(n: int, device, y0: int = 0, ny: int | None = None) -> _PkBins:
     ksum = _binned_sum(torch.as_tensor(k_norm), bins)
     bins = bins._replace(
         k=ksum if pencil else (ksum / bins.nmodes.double()).to(F32))
-    bins = _PkBins(*(t.to(device) for t in bins))
-    _PK_BINS[key] = bins
-    return bins
+    return _PkBins(*(t.to(device) for t in bins))
 
 
 def _binned_sum(values: torch.Tensor, bins: _PkBins) -> torch.Tensor:

@@ -32,6 +32,7 @@ import torch
 
 from .models import cubic, laplacian, mond, multigrid, quartic
 from .ops import dense_pm, fourier, mesh, tiled_pm
+from .utils import profiling
 from .utils.units import C_KMS
 
 F32 = torch.float32
@@ -238,6 +239,7 @@ def _multigrid_solve(cfg: SolverConfig, rhs, x, dyn: DynScalars):
     epsrel times the truncation error of x (recomputed on every solve)."""
     tolerance = np.float32(dyn.epsrel) * np.float32(
         float(laplacian.truncation_error(x)))
+    profiling.count("host_syncs")
     return multigrid.linear(x, rhs, cfg.ncoarse, cfg.Npre, cfg.Npost,
                             tolerance, cfg.multigrid_cycle)
 
@@ -298,6 +300,7 @@ def _scalaron(cfg: SolverConfig, density, u, dyn: DynScalars,
         u = init(dens_term, dyn.fR_q)
     tolerance = np.float32(dyn.epsrel) * np.float32(
         float(ops.truncation_error(u, dens_term)))
+    profiling.count("host_syncs")
     return multigrid.FAS(u, dens_term, ops, cfg.ncoarse, cfg.Npre,
                          cfg.Npost, tolerance, cfg.multigrid_cycle)
 
@@ -328,29 +331,36 @@ def _solve_fields(cfg: SolverConfig, first_call: bool, save_pk: bool,
     component-leading, (3, M, M, M), as the tiled gather reads it."""
     pk = None
     if save_pk:
-        pk = fourier.power_spectrum(fourier.rfft3(density), cfg.mas_index)
-    u = _additional_field(cfg, density, u, dyn, first_call)
-    if cfg.theory == "mond":
-        rhs = mond.rhs(u, dyn.mond_g0, cfg.mond_function, cfg.mond_alpha)
-    else:
-        rhs = _newton_rhs(density, dyn)
-    del density
+        with profiling.span("pm.power_spectrum"):
+            pk = fourier.power_spectrum(fourier.rfft3(density),
+                                        cfg.mas_index)
+    full_fft = cfg.linear_newton_solver == "full_fft"
+    with profiling.span("pm.solve"):
+        u = _additional_field(cfg, density, u, dyn, first_call)
+        if cfg.theory == "mond":
+            rhs = mond.rhs(u, dyn.mond_g0, cfg.mond_function,
+                           cfg.mond_alpha)
+        else:
+            rhs = _newton_rhs(density, dyn)
+        del density
+        if full_fft:
+            force = _fft_force(cfg, rhs)
+            if leading:
+                force = force.movedim(-1, 0).contiguous()
+        else:
+            potential = _linear_solve(cfg, rhs, potential, dyn, first_call)
     order = cfg.gradient_stencil_order
-    if cfg.linear_newton_solver == "full_fft":
-        force = _fft_force(cfg, rhs)
-        if leading:
-            force = force.movedim(-1, 0).contiguous()
-        if cfg.theory == "fr":
-            force = force + mesh.derivative_fR(
-                torch.zeros_like(rhs), u, dyn.fR_half_c2, cfg.fR_n, order,
-                leading)
-        return force, potential, u, pk
-    potential = _linear_solve(cfg, rhs, potential, dyn, first_call)
-    if cfg.theory == "fr":
-        force = mesh.derivative_fR(potential, u, dyn.fR_half_c2, cfg.fR_n,
-                                   order, leading)
-    else:
-        force = mesh.derivative(potential, order, leading)
+    with profiling.span("pm.gradient"):
+        if full_fft:
+            if cfg.theory == "fr":
+                force = force + mesh.derivative_fR(
+                    torch.zeros_like(rhs), u, dyn.fR_half_c2, cfg.fR_n,
+                    order, leading)
+        elif cfg.theory == "fr":
+            force = mesh.derivative_fR(potential, u, dyn.fR_half_c2,
+                                       cfg.fR_n, order, leading)
+        else:
+            force = mesh.derivative(potential, order, leading)
     return force, potential, u, pk
 
 
@@ -383,28 +393,37 @@ def pm(cfg: SolverConfig, first_call: bool, save_pk: bool, position,
         velocity = torch.zeros_like(position)
     overflow = 0
     if cfg.particle_engine == "pallas":
-        position, velocity, tstarts = tiled_pm.sort_particles(
-            position, velocity, n, scheme, mode=cfg.sort_mode)
-        density = _normalise(cfg, tiled_pm.deposit(position, tstarts, n,
-                                                   scheme))
+        with profiling.span("pm.sort"):
+            position, velocity, tstarts = tiled_pm.sort_particles(
+                position, velocity, n, scheme, mode=cfg.sort_mode)
+        with profiling.span("pm.deposit"):
+            density = _normalise(cfg, tiled_pm.deposit(position, tstarts, n,
+                                                       scheme))
         force, potential, u, pk = _solve_fields(
             cfg, first_call, save_pk, density, potential, u, dyn,
             leading=True)
-        acceleration = tiled_pm.gather_vec_cl(force, position, tstarts,
-                                              scheme)
+        with profiling.span("pm.gather"):
+            acceleration = tiled_pm.gather_vec_cl(force, position, tstarts,
+                                                  scheme)
     elif cfg.particle_engine == "dense":
-        position, velocity, starts = dense_pm.sort_by_plane(
-            position, n, scheme, velocity)
-        density, overflow = dense_pm.deposit(position, starts, n, scheme)
-        force, potential, u, pk = _solve_fields(
-            cfg, first_call, save_pk, _normalise(cfg, density), potential,
-            u, dyn)
-        acceleration = dense_pm.gather_vec(force, position, starts, scheme)
-    else:
-        density = _normalise(cfg, mesh.deposit(position, n, scheme))
+        with profiling.span("pm.sort"):
+            position, velocity, starts = dense_pm.sort_by_plane(
+                position, n, scheme, velocity)
+        with profiling.span("pm.deposit"):
+            density, overflow = dense_pm.deposit(position, starts, n, scheme)
+            density = _normalise(cfg, density)
         force, potential, u, pk = _solve_fields(
             cfg, first_call, save_pk, density, potential, u, dyn)
-        acceleration = mesh.gather_vec(force, position, scheme)
+        with profiling.span("pm.gather"):
+            acceleration = dense_pm.gather_vec(force, position, starts,
+                                               scheme)
+    else:
+        with profiling.span("pm.deposit"):
+            density = _normalise(cfg, mesh.deposit(position, n, scheme))
+        force, potential, u, pk = _solve_fields(
+            cfg, first_call, save_pk, density, potential, u, dyn)
+        with profiling.span("pm.gather"):
+            acceleration = mesh.gather_vec(force, position, scheme)
     return position, velocity, acceleration, potential, u, pk, overflow
 
 
@@ -425,19 +444,23 @@ def _pm_lazy_impl(cfg: SolverConfig, presorted: int, save_pk: bool,
     scheme = cfg.mass_scheme
     if presorted:
         drift = int(presorted)
-        overflow = tiled_pm.drift_violations(position, tstarts, n, scheme,
-                                             drift)
+        with profiling.span("pm.drift_check"):
+            overflow = tiled_pm.drift_violations(position, tstarts, n,
+                                                 scheme, drift)
     else:
-        position, velocity, tstarts = tiled_pm.sort_particles(
-            position, velocity, n, scheme, mode=cfg.sort_mode)
+        with profiling.span("pm.sort"):
+            position, velocity, tstarts = tiled_pm.sort_particles(
+                position, velocity, n, scheme, mode=cfg.sort_mode)
         drift = 0
         overflow = 0
-    density = _normalise(cfg, tiled_pm.deposit(position, tstarts, n, scheme,
-                                               drift))
+    with profiling.span("pm.deposit"):
+        density = _normalise(cfg, tiled_pm.deposit(position, tstarts, n,
+                                                   scheme, drift))
     force, potential, u, pk = _solve_fields(cfg, False, save_pk, density,
                                             potential, u, dyn, leading=True)
-    acceleration = tiled_pm.gather_vec_cl(force, position, tstarts, scheme,
-                                          drift)
+    with profiling.span("pm.gather"):
+        acceleration = tiled_pm.gather_vec_cl(force, position, tstarts,
+                                              scheme, drift)
     return (position, velocity, tstarts, acceleration, potential, u, pk,
             overflow)
 
