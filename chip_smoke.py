@@ -28,8 +28,13 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    cells; the norm per kind beside its bound, and its designs one
    against another: the plane march with 8 and 16 rows a tile, without
    its second launch, and one thread a cell), the prolongation beside
-   the trilinear ``interpolate`` yardstick; the deposit's device time
-   split between its kernel and the torch zeroing and fold; the slab call
+   the trilinear ``interpolate`` yardstick; the f(R) n = 1 sweep with
+   the float64 closed-form root (no TPU kernel) bitwise its twin at n =
+   4, 8, 64, 256 and 512 on ``tests/exact_root_states.py``'s states
+   (cells on every branch of the closed form, a scalaron-like state), its
+   float64 instructions counted branch by branch in its SASS, and its
+   times at 256^3 and 512^3 beside its byte and float64 bounds and the
+   twin's; the deposit's device time split between its kernel and the torch zeroing and fold; the slab call
    forms of the deposit and the gather (``deposit_slab``,
    ``gather_vec_slab``) at ``plane0 != 0`` on 128^3, 256^3 and 512^3
    (z-blocked), CIC and TSC, drift 0-2, a quarter of the grid and the
@@ -69,7 +74,9 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    rest of a lazy step itemised (kick, drift and wrap, the drift-bound
    count, the sources, the truncation error, the diagnostics) beside the
    force evaluation and the step as wholes, by CUDA events and by the
-   host clock;
+   host clock; then the same configuration with ``fR_root_solver =
+   exact`` to z = 30: the exact-root sweep launched on every step, the
+   Newton-root one never, its launches counted from zero;
 11. f(R) n = 2: TSC, multigrid, 256^3 for a few steps;
 12. the run extras: ``run_paired`` at the configuration of
    ``tests/test_e2e.py::test_run_paired`` (three output trees, the
@@ -118,7 +125,10 @@ Phases (any failure exits non-zero, and nothing is carried past it):
 
 The last two lines of standard output are the kernels' JSON record (with
 each kernel's bound: the larger of its bytes over 3.35 TB/s and its
-float32 operations over 67 TFLOP/s, the H100 SXM's published peaks) and
+float32 operations over 67 TFLOP/s, the H100 SXM's published peaks, or
+for the exact-root sweep its float64 instructions over 132 SMs x 64
+lanes x 1.98 GHz, for the branch each cell takes; its launches are
+those of phase 10's exact-root run) and
 the result line ``{"ok": true, "device": {...}}``.
 """
 
@@ -165,10 +175,51 @@ POISSON_KERNELS = tuple(k for k in SINGLE_KERNELS
 RESIDUAL_KINDS = (("linear", None), ("laplacian", None),
                   ("reformulated", None), ("cubic", -0.27),
                   ("quartic", -0.27))
+# kernels that replace no TPU kernel: the f(R) n = 1 sweep with the
+# float64 closed-form root (the JAX package takes those roots in jnp)
+EXTRA_KERNELS = {
+    "scalaron_exact_half_sweep": "pysco_tpu_torch/csrc/scalaron_sweep.cu",
+}
 # the H100 SXM's published peaks: HBM bytes/s
 # and float32 operations/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# float64 instructions/s: 132 SMs x 64 float64 lanes x 1.98 GHz
+F64_INSTR_PER_S = 132 * 64 * 1.98e9
+# the float64 pipe's instructions, counted in the exact-root sweep's SASS
+F64_OPS = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX")
+# kernels that hold one part each of the exact-root sweep's float64 work
+# (csrc/scalaron_sweep.cu): the discriminant and its two comparisons,
+# without and with the rhs plane, and the three branches of the root; the
+# sweep does the first and one branch a cell
+F64_COUNT_SRC = r"""
+#include "scalaron_sweep.cu"
+extern "C" __global__ void f64_d(const double* p, const double* d1,
+                                 int* out) {
+  const int i = threadIdx.x;
+  const double d = d1[i] * d1[i] + 108.0 * (p[i] * p[i] * p[i]);
+  out[i] = (d > 0.0) - (d < 0.0);
+}
+extern "C" __global__ void f64_d_rhs(const double* p, const float* r,
+                                     double d1_q, int* out) {
+  const int i = threadIdx.x;
+  const double d1 = d1_q - 27.0 * static_cast<double>(r[i]);
+  const double d = d1 * d1 + 108.0 * (p[i] * p[i] * p[i]);
+  out[i] = (d > 0.0) - (d < 0.0);
+}
+extern "C" __global__ void f64_cardano(const double* p, const double* d1,
+                                       const double* d, double* out) {
+  out[threadIdx.x] = cardano_root(p[threadIdx.x], d1[threadIdx.x],
+                                  d[threadIdx.x]);
+}
+extern "C" __global__ void f64_trig(const double* p, const double* d1,
+                                    double* out) {
+  out[threadIdx.x] = trig_root(p[threadIdx.x], d1[threadIdx.x]);
+}
+extern "C" __global__ void f64_zero(const double* d1, double* out) {
+  out[threadIdx.x] = zero_root(d1[threadIdx.x]);
+}
+"""
 
 
 def bound(nbytes: float, flops: float):
@@ -880,6 +931,148 @@ def phase_scalaron_kernel(torch, np, lap, st, n, gen):
     return worst
 
 
+def _exact_f64_counts():
+    """The float64 instructions (:data:`F64_OPS`) in the SASS of each part
+    of the exact-root sweep's work, compiled as the library is
+    (:data:`F64_COUNT_SRC`; cuobjdump -sass): {"d", "d_rhs", "cardano",
+    "trig", "zero"}. A static count: each instruction of a part's code
+    once, the special-value paths inside libdevice's pow, acos and cos
+    among them."""
+    import re
+
+    from pysco_tpu_torch.ops import cuda_build
+
+    nvcc = cuda_build._nvcc()
+    tmp = tempfile.mkdtemp(prefix="pysco_sass_")
+    try:
+        src = os.path.join(tmp, "count.cu")
+        cubin = os.path.join(tmp, "count.cubin")
+        with open(src, "w") as f:
+            f.write(F64_COUNT_SRC)
+        cmd = [nvcc, *cuda_build.FLAGS, "-I", str(cuda_build.CSRC),
+               "-cubin", "-o", cubin, src]
+        r = subprocess.run(cmd, capture_output=True, text=True)
+        check(r.returncode == 0, f"count kernels: nvcc {r.stderr[-2000:]}")
+        r = subprocess.run(
+            [os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass",
+             cubin], capture_output=True, text=True)
+        check(r.returncode == 0, f"count kernels: cuobjdump {r.stderr}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts, name = {}, None
+    for line in r.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)[4:] if m.group(1).startswith("f64_") else None
+            if name is not None:
+                counts[name] = 0
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     line)
+        if name is not None and m and m.group(1) in F64_OPS:
+            counts[name] += 1
+    check(set(counts) == {"d", "d_rhs", "cardano", "trig", "zero"},
+          f"count kernels: functions {sorted(counts)}")
+    return counts
+
+
+def _exact_f64_per_cell(torch, st, counts, src, hb, d1):
+    """Float64 instructions a cell of one exact-root sweep on this state:
+    the discriminant's and that of the branch each cell takes (d1 a float,
+    or a float64 plane: the rhs form)."""
+    p = (hb - st._INVSIX * st.packed_neighbour_sum(src * src, True)).double()
+    d = d1 * d1 + 108.0 * (p * p * p)
+    pos, neg = float((d > 0).double().mean()), float((d < 0).double().mean())
+    base = counts["d" if isinstance(d1, float) else "d_rhs"]
+    return (base + pos * counts["cardano"] + neg * counts["trig"]
+            + (1.0 - pos - neg) * counts["zero"]), (pos, neg)
+
+
+def phase_exact_root_kernel(torch, np, st):
+    """The f(R) n = 1 sweep with the float64 closed-form root against its
+    twin at n = 4, 8, 64, 256 and 512 on tests/exact_root_states.py's
+    states, with a scalar d1 and the rhs plane, both colours: bitwise on
+    every branch, within one float32 ulp where libdevice's pow(x, 1.5)
+    differs from torch's (the count of cells not bitwise is logged); its
+    times at 256^3 and 512^3 on the scalaron-like state (cells of both
+    branches in every warp), with the rhs plane, and on a p smooth in x
+    (one branch a warp, as in a simulation), beside its byte and float64
+    bounds (the float64 work of the branch each cell takes) and the twin's
+    time. Returns (ms, twin ms, bound, largest |kernel - twin|), times at
+    256^3 without the plane, for the record."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from exact_root_states import exact_states
+
+    worst = 0.0
+    for n in (4, 8, 64, 256, 512):
+        off = 0
+        for name, ((src, dst, hb, rhs), d1_q) in exact_states(
+                n, "cuda").items():
+            for r in (None, rhs):
+                for to_red in (True, False):
+                    got = st.scalaron_exact_half_sweep(src, dst, hb, d1_q,
+                                                       to_red, 1.25, r)
+                    want = st.scalaron_exact_half_sweep_plain(
+                        src, dst, hb, d1_q, to_red, 1.25, r)
+                    check(bool(torch.isfinite(got).all()),
+                          f"scalaron_exact_half_sweep: n={n} {name}: not "
+                          "finite")
+                    ulps = (got.view(torch.int32).long()
+                            - want.view(torch.int32).long()).abs()
+                    tag = f"n={n} {name} rhs={r is not None} red={to_red}"
+                    check(int(ulps.max()) <= (1 if name == "pow" else 0),
+                          f"scalaron_exact_half_sweep vs twin: "
+                          f"{int(ulps.max())} float32 ulps ({tag})")
+                    off += int((ulps > 0).sum())
+                    worst = max(worst, float((got - want).abs().max()))
+        log(f"[3 exact] n={n} scalaron_exact_half_sweep: bitwise its twin "
+            f"on the branch and scalaron-like states, scalar and plane d1, "
+            f"both colours; {off} cells one float32 ulp off on the pow "
+            f"state; largest |kernel - twin| so far {worst:.3e}")
+    counts = _exact_f64_counts()
+    log(f"[3 exact] float64 instructions ({', '.join(F64_OPS)}) in the "
+        f"SASS: discriminant {counts['d']} ({counts['d_rhs']} with the rhs "
+        f"plane), Cardano {counts['cardano']}, trigonometric "
+        f"{counts['trig']}, d == 0 {counts['zero']}")
+    out = None
+    for n in (256, 512):
+        (src, dst, hb, rhs), _ = exact_states(n, "cuda")["scalaron"]
+        d1 = 27.0 / (n * n) * -0.1
+        i = torch.arange(n, device="cuda", dtype=torch.float32)
+        smooth = 0.05 * torch.sin(2 * np.pi * i / n)[:, None, None] + 0 * hb
+        t_k = time_ms(torch, lambda: st.scalaron_exact_half_sweep(
+            src, dst, hb, d1, True, 1.25))
+        t_r = time_ms(torch, lambda: st.scalaron_exact_half_sweep(
+            src, dst, hb, d1, True, 1.25, rhs))
+        t_s = time_ms(torch, lambda: st.scalaron_exact_half_sweep(
+            src, dst, smooth, d1, True, 1.25))
+        t_p = time_ms(torch, lambda: st.scalaron_exact_half_sweep_plain(
+            src, dst, hb, d1, True, 1.25), 3)
+        cells = hb.numel()
+        f64 = {}
+        for tag, h, dd in (("scalar", hb, d1),
+                           ("rhs", hb, d1 - 27.0 * rhs.double()),
+                           ("smooth", smooth, d1)):
+            per, shares = _exact_f64_per_cell(torch, st, counts, src, h, dd)
+            f64[tag] = per * cells / F64_INSTR_PER_S * 1e3
+            log(f"[3 exact] {n}^3 {tag}: {per:.1f} float64 instructions a "
+                f"cell (d > 0 on {shares[0]:.3f} of the cells, d < 0 on "
+                f"{shares[1]:.3f})")
+        b16 = 16 * cells / HBM_BYTES_PER_S * 1e3
+        b20 = 20 * cells / HBM_BYTES_PER_S * 1e3
+        log(f"[3 exact times] {n}^3 scalaron_exact_half_sweep: {t_k:.3f} ms "
+            f"(rhs plane {t_r:.3f}, p smooth in x {t_s:.3f}), twin "
+            f"{t_p:.3f}; bounds: bytes {b16:.4f} ms ({b20:.4f} with the "
+            f"plane), float64 {f64['scalar']:.4f} ms ({f64['rhs']:.4f} with "
+            f"the plane, {f64['smooth']:.4f} smooth in x)")
+        if out is None:
+            out = (t_k, t_p, (max(b16, f64["scalar"]),
+                              "bytes" if b16 >= f64["scalar"] else "float64"))
+        del src, dst, hb, rhs, smooth
+        torch.cuda.empty_cache()
+    return (*out, worst)
+
+
 def _norm2_check(torch, st, x, b, rhs):
     """residual_norm2 against its twin for the five kinds with and without
     rhs: within 5e-6 of the twin's sum (the kernel adds float32 squares
@@ -1169,6 +1362,10 @@ def phase_stencil_kernels(torch, np):
     meta = {k: {"bound": v, "library_ms": None} for k, v in meta.items()}
     meta["add_prolongation"]["library_ms"] = _prolongation_times(
         torch, st, x, xc, meta["add_prolongation"]["bound"], times, gen)
+    name = "scalaron_exact_half_sweep"
+    times[name], times[f"{name}_plain"], bnd, err[name] = (
+        phase_exact_root_kernel(torch, np, st))
+    meta[name] = {"bound": bnd, "library_ms": None}
     return err, times, meta
 
 
@@ -1659,12 +1856,40 @@ def phase_fr_main_path(torch, np, tmp):
     pos, vel = _check_outputs(torch, np, base, n, "cic", "10 fr main")
     param = dict(GOLDEN_PARAM, **over)
     times = _fr_components(torch, np, pos, vel, param, n, "cic", 9)
+    del pos, vel
+    exact = phase_fr_exact(torch, np, tmp, over)
     ref = {"base": base, "median_ms": float(np.median(steps_ms)),
            "fas": fas, "lin": lin, "peak_gib": peak / 2 ** 30,
            "ic_s": ic_device.TIMES["generate_lpt"],
            "fas_cycle_ms": times["V_cycle_FAS"],
            "poisson_cycle_ms": times["V_cycle (Poisson)"]}
+    launches["scalaron_exact_half_sweep"] = exact
     return launches, ref
+
+
+def phase_fr_exact(torch, np, tmp, over):
+    """Phase 10's configuration with ``fR_root_solver = exact`` (the
+    benchmark's ``fr512.lazy`` solver) to z = 30: every step launches the
+    exact-root sweep in place of the Newton one. Returns its launches."""
+    names = POISSON_KERNELS + ("scalaron_exact_half_sweep",)
+    recs, launches, stats, base = _drive(
+        torch, tmp, "10 fr exact", dict(over, fR_root_solver="exact",
+                                        z_out="[30]"), names)
+    check(len(recs) >= 3, f"only {len(recs)} exact-root f(R) steps")
+    check(launches["scalaron_half_sweep"] == 0,
+          "the exact-root run launched the Newton-root sweep")
+    fas, lin = _per_solve(stats)
+    per_step = (recs[-1].launches["scalaron_exact_half_sweep"]
+                - recs[0].launches["scalaron_exact_half_sweep"]) / (
+                    len(recs) - 1)
+    log(f"[10 fr exact] median step "
+        f"{np.median([1e3 * r.seconds for r in recs[1:]]):.1f} ms over "
+        f"{len(recs) - 1} steps (first excluded); V-cycles per FAS solve "
+        f"{fas:.2f}, per Poisson solve {lin:.2f}; scalaron_exact_half_sweep "
+        f"{launches['scalaron_exact_half_sweep']} launches, "
+        f"{per_step:.1f} a step; mean(u) {recs[-1].mean_additional:.7f}")
+    shutil.rmtree(base, ignore_errors=True)
+    return launches["scalaron_exact_half_sweep"]
 
 
 def phase_fr_n2(torch, np, tmp):
@@ -2462,6 +2687,14 @@ def main() -> int:
          "bound_by": meta[name]["bound"][1],
          "library_ms": meta[name]["library_ms"]}
         for name, (src, rep) in KERNELS.items()
+    ] + [
+        {"name": name, "route": "cuda", "source": src, "replaces": None,
+         "launches": launches[name], "max_abs_err": err[name],
+         "ms": times[name],
+         "plain_ms": times[f"{name}_plain"],
+         "bound_ms": meta[name]["bound"][0],
+         "bound_by": meta[name]["bound"][1], "library_ms": None}
+        for name, src in EXTRA_KERNELS.items()
     ]
     print(json.dumps({"kernels": record}))
     print(json.dumps({"ok": True, "device": {

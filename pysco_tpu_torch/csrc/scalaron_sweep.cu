@@ -1,10 +1,12 @@
 // One colour half of the packed red-black nonlinear sweep of the f(R)
-// scalaron, for Hopper, sm_90a.
+// scalaron, for Hopper, sm_90a, with two roots: a float32 Newton polish
+// (scalaron_sweep_kernel) and the float64 closed-form cubic
+// (scalaron_exact_sweep_kernel). Both share one blocking (sweep_march).
 //
-// Replaces pysco_tpu/ops/pallas_stencil.py::scalaron_half_sweep, which
-// streams blocks of x-planes of the (n, n/2, n) half-lattices through VMEM
-// with one periodic halo plane on each side, exactly as its linear sibling
-// half_sweep.
+// The Newton form replaces pysco_tpu/ops/pallas_stencil.py::
+// scalaron_half_sweep, which streams blocks of x-planes of the (n, n/2, n)
+// half-lattices through VMEM with one periodic halo plane on each side,
+// exactly as its linear sibling half_sweep.
 //
 // Per cell of the to_red colour (else black), with k = Power:
 //   p   = hb - (1/6) (x-^k + x+^k + y-^k + y+^k + z-^k + z+^k)
@@ -19,11 +21,43 @@
 // operand for operand; built with --fmad=false and IEEE division, the two
 // agree bitwise.
 //
-// What bounds it on the card: bytes. Per cell it must read 4 B each of src,
-// dst and hb (and the coef plane) and write 4 B: at 256^3 a call moves 4 x
-// 33.5 MB (5 x with the plane), >= 0.040 ms (0.050 ms) at 3.35 TB/s. The
-// ~50 float32 operations a cell (one division per Newton step) take under
-// 10 us at 67 TFLOP/s.
+// The exact form replaces no TPU kernel: the JAX package takes these roots
+// in plain jnp (models/cubic.py solution_cubic_equation), and so did the
+// port, in some 45 torch passes a colour update. It computes the same p
+// (k = 2) in float32, widens it, and takes the real root of
+// u^3 + p u + d1/27 = 0 in float64, with d1 = 27 h^2 q (a double argument)
+// or 27 h^2 q - 27 rhs (rhs read as float32 and widened): only on the
+// branch the twin (ops/stencil.py solution_cubic_equation) selects, with
+// the libdevice calls torch's float64 kernels make (sqrt, pow, acos, cos),
+// then casts the root to float32 and relaxes as above. Built with
+// --fmad=false, as the Newton form must be, its libdevice pow(x, 1.5)
+// rounds 1 float64 ulp away from torch's (built with the default
+// --fmad=true, which contracts a product and a sum inside it) for about
+// 4.5 in a million x (50 million x from 1e-12 to 1e3, CUDA 12.8); sqrt,
+// acos, cos and pow(x, 1/3) matched on every value tried. A float64 ulp moves
+// the float32 result only where it lies within one float64 ulp of a
+// float32 rounding boundary, so the sweep's output agrees bitwise with
+// the twin's on every state tried, and is held to one float32 ulp on the
+// cells where pow differs.
+//
+// What bounds them on the card. The Newton form: bytes. Per cell it must
+// read 4 B each of src, dst and hb (and the coef plane) and write 4 B: at
+// 256^3 a call moves 4 x 33.5 MB (5 x with the plane), >= 0.040 ms (0.050
+// ms) at 3.35 TB/s. The ~50 float32 operations a cell (one division per
+// Newton step) take under 10 us at 67 TFLOP/s. The exact form moves the
+// same 16 B a cell (20 with the rhs plane: 0.32 / 0.40 ms at 512^3) and
+// executes the float64 instructions of its cell's branch (a sqrt and a
+// cube root by pow and a division for Cardano; pow, sqrt, acos and cos in
+// software for the trigonometric root), which at 132 SMs x 64 float64
+// lanes x 1.98 GHz take longer than the bytes (chip_smoke.py counts them
+// in the SASS, branch by branch, for the kernel's bound); libdevice's
+// pow, acos and cos carry integer and control instructions besides. Its
+// design keeps every float64 value in registers (the torch passes wrote
+// a dozen float64 planes), computes one branch per cell instead of all
+// three, and lets 3 blocks share an SM (at most 85 registers a thread:
+// ptxas takes 78-80 and spills nothing; 2 blocks ran 18% slower at 512^3,
+// 4 spill) with about 4096 blocks a launch, so that the float64 latencies
+// are hidden.
 //
 // The design (2.5-D blocking): a block owns a tile of up to 8 packed rows
 // (jp) x 128 z cells and marches along x over a run of planes. Each thread
@@ -36,8 +70,9 @@
 // raised to the power once; the loads of the next plane are issued before
 // the current plane is computed. A 3-D grid of blocks (z tiles, y tiles,
 // runs) needs no runtime division. The run length is chosen so that about
-// 1024 blocks fill the card (4 blocks of 256 threads an SM, the registers
-// bounded to let them in).
+// 1024 blocks fill the card (4 blocks of 256 threads an SM for the Newton
+// form, the registers bounded to let them in; 4096 and 3 for the exact
+// form).
 //
 // Each thread reads only its own dst cells and the other colour, so out may
 // be dst (an in-place update). n must be a multiple of 4 (one float4), and
@@ -63,6 +98,13 @@ constexpr int kTargetBlocks = 1024;
 // at most 64 registers a thread, so that 4 blocks share an SM (the 72-80
 // registers ptxas takes unbounded let only 3 in)
 constexpr int kBlocksPerSM = 4;
+// the exact form: at most 85 registers a thread, for the float64 code
+constexpr int kExactBlocksPerSM = 3;
+constexpr int kExactTargetBlocks = 4096;
+
+// the twin's Python constants: 1/3, 2 pi (math.pi doubled), both exact
+constexpr double kThird = 1.0 / 3.0;
+constexpr double kTwoPi = 2.0 * 3.141592653589793;
 
 // f / fp, rounded as IEEE division rounds it. A zero f -- every Newton step
 // of a converged cell -- sends the division down its slow path (chip_smoke
@@ -96,6 +138,45 @@ __device__ __forceinline__ float newton_root(float x, float p, float c0,
   return x;
 }
 
+// sign(v) |v|^(1/3), the twin's _cbrt: torch.sign is (0 < v) - (v < 0),
+// so 0 at zeros and NaN
+__device__ __forceinline__ double signed_cbrt(double v) {
+  const double s = static_cast<double>((0.0 < v) - (v < 0.0));
+  return s * pow(fabs(v), kThird);
+}
+
+// The roots of u^3 + p u + d1/27 = 0 on the three branches of the twin's
+// nested torch.where, d = d1^2 + 108 p^3. d == 0 (or NaN): -cbrt(d1)/3.
+__device__ __forceinline__ double zero_root(double d1) {
+  return -kThird * signed_cbrt(d1);
+}
+
+// d > 0: Cardano; where dd == 0 the twin takes zero_root, here by the same
+// one cube root of d1 in place of 0.5 dd
+__device__ __forceinline__ double cardano_root(double p, double d1,
+                                               double d) {
+  const double dd = d1 + sqrt(d);
+  const double C = signed_cbrt(dd == 0.0 ? d1 : 0.5 * dd);
+  return dd == 0.0 ? -kThird * C : -kThird * (C - 3.0 * p / C);
+}
+
+// d < 0: three real roots, the trigonometric one at (theta + 2 pi)/3
+__device__ __forceinline__ double trig_root(double p, double d1) {
+  const double d0 = -3.0 * p;
+  const double dn = d1 / (2.0 * pow(d0, 1.5));
+  // torch.clamp keeps a NaN
+  const double cl = dn != dn ? dn : fmin(fmax(dn, -1.0), 1.0);
+  return -2.0 * kThird * sqrt(d0) * cos(kThird * (acos(cl) + kTwoPi));
+}
+
+// The real root on the branch the twin keeps, that branch's work alone
+__device__ __forceinline__ double cubic_root(double p, double d1) {
+  const double d = d1 * d1 + 108.0 * (p * p * p);
+  if (d > 0.0) return cardano_root(p, d1, d);
+  if (d < 0.0) return trig_root(p, d1);
+  return zero_root(d1);
+}
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -118,13 +199,14 @@ struct PlaneLoad {
   float own_lo, own_hi, h_lo, h_hi;
 };
 
-template <int Power, bool CoefPlane>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-scalaron_sweep_kernel(const float* __restrict__ src, const float* dst,
-                      const float* __restrict__ hb,
-                      const float* __restrict__ coef_plane, float coef,
-                      float* out, int n, int run, int to_red, float f_relax,
-                      int newton_iters) {
+// The blocked march of one colour update over the block's tile and run of
+// planes. update(old, p, cv) is a cell's new value from its dst value, its
+// p and its coef-plane value cv (0 without the plane).
+template <int Power, bool CoefPlane, typename Update>
+__device__ __forceinline__ void sweep_march(
+    const float* __restrict__ src, const float* dst,
+    const float* __restrict__ hb, const float* __restrict__ coef_plane,
+    float* out, int n, int run, int to_red, Update update) {
   __shared__ __align__(16) float plane[kTileY + 2][kRow];
   const int hp = n / 2;
   const int tx = threadIdx.x, ty = threadIdx.y;
@@ -214,10 +296,7 @@ scalaron_sweep_kernel(const float* __restrict__ src, const float* dst,
         nb = nb + row[c - 1];
         nb = nb + row[c + 1];
         const float p = lane(h4, c) - kInvSix * nb;
-        const float c0 = CoefPlane ? lane(c4, c) : coef;
-        const float old = lane(d4, c);
-        const float x = newton_root<Power>(old, p, c0, newton_iters);
-        r[c] = old + f_relax * (x - old);
+        r[c] = update(lane(d4, c), p, CoefPlane ? lane(c4, c) : 0.0f);
       }
       *reinterpret_cast<float4*>(out + at) = make_float4(r[0], r[1], r[2],
                                                          r[3]);
@@ -229,26 +308,72 @@ scalaron_sweep_kernel(const float* __restrict__ src, const float* dst,
   }
 }
 
-template <int Power>
-void launch(const float* src, const float* dst, const float* hb,
-            const float* coef_plane, float coef, float* out, int n,
-            int to_red, float f_relax, int newton_iters, cudaStream_t st) {
+template <int Power, bool CoefPlane>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
+scalaron_sweep_kernel(const float* __restrict__ src, const float* dst,
+                      const float* __restrict__ hb,
+                      const float* __restrict__ coef_plane, float coef,
+                      float* out, int n, int run, int to_red, float f_relax,
+                      int newton_iters) {
+  sweep_march<Power, CoefPlane>(
+      src, dst, hb, coef_plane, out, n, run, to_red,
+      [&](float old, float p, float cv) {
+        const float c0 = CoefPlane ? cv : coef;
+        const float x = newton_root<Power>(old, p, c0, newton_iters);
+        return old + f_relax * (x - old);
+      });
+}
+
+// The exact form, f(R) n = 1 (k = 2): d1 = d1_q [- 27 rhs].
+template <bool RhsPlane>
+__global__ void __launch_bounds__(kThreads, kExactBlocksPerSM)
+scalaron_exact_sweep_kernel(const float* __restrict__ src, const float* dst,
+                            const float* __restrict__ hb,
+                            const float* __restrict__ rhs, double d1_q,
+                            float* out, int n, int run, int to_red,
+                            float f_relax) {
+  sweep_march<2, RhsPlane>(
+      src, dst, hb, rhs, out, n, run, to_red,
+      [&](float old, float p, float r) {
+        const double d1 =
+            RhsPlane ? d1_q - 27.0 * static_cast<double>(r) : d1_q;
+        const float x =
+            static_cast<float>(cubic_root(static_cast<double>(p), d1));
+        return old + f_relax * (x - old);
+      });
+}
+
+// The block and grid of a sweep over the (n, n/2, n) half-lattice, and the
+// run of planes a block marches over: about target blocks.
+struct Launch {
+  dim3 grid, block;
+  int run;
+};
+
+Launch launch_shape(int n, int target) {
   const int hp = n / 2;
   const dim3 block(min(n, kTileZ) / kVec, min(hp, kTileY));
   const int gx = (n + block.x * kVec - 1) / (block.x * kVec);
   const int gy = (hp + block.y - 1) / block.y;
   int run = n;
-  while (run > 2 && gx * gy * ((n + run - 1) / run) < kTargetBlocks) {
+  while (run > 2 && gx * gy * ((n + run - 1) / run) < target) {
     run /= 2;
   }
-  const dim3 grid(gx, gy, (n + run - 1) / run);
+  return {dim3(gx, gy, (n + run - 1) / run), block, run};
+}
+
+template <int Power>
+void launch(const float* src, const float* dst, const float* hb,
+            const float* coef_plane, float coef, float* out, int n,
+            int to_red, float f_relax, int newton_iters, cudaStream_t st) {
+  const Launch l = launch_shape(n, kTargetBlocks);
   if (coef_plane != nullptr) {
-    scalaron_sweep_kernel<Power, true><<<grid, block, 0, st>>>(
-        src, dst, hb, coef_plane, coef, out, n, run, to_red, f_relax,
+    scalaron_sweep_kernel<Power, true><<<l.grid, l.block, 0, st>>>(
+        src, dst, hb, coef_plane, coef, out, n, l.run, to_red, f_relax,
         newton_iters);
   } else {
-    scalaron_sweep_kernel<Power, false><<<grid, block, 0, st>>>(
-        src, dst, hb, coef_plane, coef, out, n, run, to_red, f_relax,
+    scalaron_sweep_kernel<Power, false><<<l.grid, l.block, 0, st>>>(
+        src, dst, hb, coef_plane, coef, out, n, l.run, to_red, f_relax,
         newton_iters);
   }
 }
@@ -277,6 +402,28 @@ extern "C" int pysco_scalaron_half_sweep(const float* src, const float* dst,
               newton_iters, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same update of f(R) n = 1 with the float64 closed-form root:
+// d1 = d1_q (27 h^2 q) where rhs is null, else d1_q - 27 rhs. out may be
+// dst. n must be a multiple of 4 and every array 16-byte aligned. Returns
+// the CUDA error of the launch (0 on success), or cudaErrorInvalidValue
+// for another n.
+extern "C" int pysco_scalaron_exact_half_sweep(
+    const float* src, const float* dst, const float* hb, const float* rhs,
+    double d1_q, float* out, int n, int to_red, float f_relax,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < kVec || n % kVec) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch l = launch_shape(n, kExactTargetBlocks);
+  if (rhs != nullptr) {
+    scalaron_exact_sweep_kernel<true><<<l.grid, l.block, 0, st>>>(
+        src, dst, hb, rhs, d1_q, out, n, l.run, to_red, f_relax);
+  } else {
+    scalaron_exact_sweep_kernel<false><<<l.grid, l.block, 0, st>>>(
+        src, dst, hb, rhs, d1_q, out, n, l.run, to_red, f_relax);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -19,60 +19,22 @@ contrast breaks the degeneracy. The JAX module's docstring records why the
 background-seeded guess was not adopted.
 
 torch has no ``cbrt``: cube roots of negative float64 values are taken as
-sign(v) |v|^(1/3) (:func:`_cbrt`).
+sign(v) |v|^(1/3) (:func:`_cbrt`). The closed form and its helpers live in
+``ops/stencil.py``, beside the sweep kernel that computes it on the card.
 """
 
 from __future__ import annotations
-
-import math
 
 import numpy as np
 import torch
 
 from ..ops import stencil
+# the closed-form root, under the JAX module's names
+from ..ops.stencil import _cbrt, _f64, solution_cubic_equation  # noqa: F401
 from .laplacian import F_RELAX, _parity, packed_scalaron_smoothing
 
 F32 = torch.float32
 F64 = torch.float64
-
-
-def _cbrt(v: torch.Tensor) -> torch.Tensor:
-    """Real cube root of a float64 tensor, negative values included."""
-    return torch.sign(v) * torch.abs(v) ** (1.0 / 3.0)
-
-
-def _f64(v, like: torch.Tensor) -> torch.Tensor:
-    """A float or tensor as float64 on ``like``'s device, broadcast to its
-    shape."""
-    return torch.as_tensor(v, dtype=F64, device=like.device).expand(
-        like.shape)
-
-
-def solution_cubic_equation(p: torch.Tensor, d1) -> torch.Tensor:
-    """Real root of u^3 + p u + d1/27 = 0 (float64, branchless)."""
-    p = p.to(F64)
-    d1 = _f64(d1, p)
-    inv3 = 1.0 / 3.0
-    d = d1 * d1 + 108.0 * (p * p * p)
-
-    # d > 0: the single real root, by Cardano
-    d_pos = torch.where(d > 0.0, d, 1.0)
-    dd = d1 + torch.sqrt(d_pos)
-    dd_safe = torch.where(dd == 0.0, 1.0, dd)
-    C = _cbrt(0.5 * dd_safe)
-    root_pos = torch.where(dd == 0.0, -inv3 * _cbrt(d1),
-                           -inv3 * (C - 3.0 * p / C))
-
-    # d < 0: three real roots, the trigonometric one at (theta + 2 pi)/3
-    d0 = torch.where(d < 0.0, -3.0 * p, 1.0)
-    dn = d1 / (2.0 * d0 ** 1.5)
-    theta = torch.arccos(torch.clamp(dn, -1.0, 1.0))
-    root_neg = -2.0 * inv3 * torch.sqrt(d0) * torch.cos(
-        inv3 * (theta + 2.0 * math.pi))
-
-    root_zero = -inv3 * _cbrt(d1)
-    return torch.where(d > 0.0, root_pos,
-                       torch.where(d < 0.0, root_neg, root_zero))
 
 
 def initialise_potential(b: torch.Tensor, q) -> torch.Tensor:
@@ -156,6 +118,5 @@ def smoothing(x: torch.Tensor, b: torch.Tensor, q, n_smoothing: int,
               rhs=None, exact_root: bool = False) -> torch.Tensor:
     """n_smoothing red-black sweeps on packed half-lattices (one
     pack/unpack round trip; see laplacian.pack_rb)."""
-    return packed_scalaron_smoothing(
-        x, b, q, n_smoothing, rhs, exact_root, n_power=2,
-        exact_solve=solution_cubic_equation, exact_scale=27.0)
+    return packed_scalaron_smoothing(x, b, q, n_smoothing, rhs, exact_root,
+                                     n_power=2)

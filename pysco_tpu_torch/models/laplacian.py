@@ -26,6 +26,7 @@ from ..ops import stencil
 # the stencil primitives, under the JAX module's names
 from ..ops.stencil import (  # noqa: F401
     _INVSIX, _f32, _parity_ik, neighbour_sum, packed_neighbour_sum)
+from ..utils import profiling
 
 F_RELAX = 1.25  # Kravtsov et al. 1997
 
@@ -133,47 +134,53 @@ def _smoothing_packed(x, b, n_smoothing: int, rhs=None,
 
 
 def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
-                              exact_root: bool, n_power: int, exact_solve,
-                              exact_scale: float) -> torch.Tensor:
+                              exact_root: bool, n_power: int,
+                              exact_solve=None) -> torch.Tensor:
     """Packed red-black sweeps of the f(R) scalaron equation
     u^(n_power+1) + p u + q h^2 [- rhs] = 0, one pack/unpack round trip
     (``cubic.smoothing`` with n_power = 2, ``quartic.smoothing`` with 3).
 
     Each colour update reads only the opposite half-lattice's n_power-th
     power. With the Newton root it is :func:`stencil.scalaron_half_sweep`
-    (the CUDA kernel on the card), c0 = h^2 q [- rhs] in float32; with
-    ``exact_root`` the float64 closed form ``exact_solve(p, coef)`` takes
-    the root in plain torch, coef = exact_scale (h^2 q [- rhs]) in float64
-    (27 for the cubic's d1, 1 for the quartic). The relaxation factor is
-    :data:`F_RELAX`."""
+    (the CUDA kernel on the card), c0 = h^2 q [- rhs] in float32. With
+    ``exact_root`` and n_power = 2 it is
+    :func:`stencil.scalaron_exact_half_sweep` (the float64 closed-form
+    cubic, one kernel on the card), d1 = 27 h^2 q [- 27 rhs]; with
+    n_power = 3 the float64 closed form ``exact_solve(p, coef)`` takes the
+    root in plain torch, coef = h^2 q [- rhs] in float64. The relaxation
+    factor is :data:`F_RELAX`."""
     n = x.shape[1]
     h2 = 1.0 / (n * n)
     red, black = pack_rb(x)
     hb_r, hb_b = pack_rb(_f32(h2) * b)
-    if exact_root:
-        base = exact_scale * h2 * float(q)
-        if rhs is None:
-            coef_r = coef_b = base
-        else:
-            r_r, r_b = pack_rb(rhs)
-            coef_r = base - exact_scale * r_r.double()
-            coef_b = base - exact_scale * r_b.double()
-    else:
-        c0_q = _f32(np.float32(h2) * np.float32(q))
-        if rhs is None:
-            coef_r = coef_b = c0_q
-        else:
-            r_r, r_b = pack_rb(rhs)
-            coef_r, coef_b = c0_q - r_r, c0_q - r_b
+    rhs_r, rhs_b = (None, None) if rhs is None else pack_rb(rhs)
+    if exact_root and n_power == 2:
+        d1_q = 27.0 * h2 * float(q)
+        coef_r, coef_b = rhs_r, rhs_b  # the kernel folds rhs into d1
+        if x.is_cuda:  # the kernel's launches, for a profiled step
+            profiling.count("exact_root_sweeps", 2 * n_smoothing)
 
-    def half(src, dst, hb, coef, to_red):
-        if exact_root:
+        def half(src, dst, hb, r, to_red):
+            return stencil.scalaron_exact_half_sweep(src, dst, hb, d1_q,
+                                                     to_red, F_RELAX, r)
+    elif exact_root:
+        base = h2 * float(q)
+        coef_r, coef_b = ((base, base) if rhs is None else
+                          (base - rhs_r.double(), base - rhs_b.double()))
+
+        def half(src, dst, hb, coef, to_red):
             p = hb - _INVSIX * packed_neighbour_sum(
                 stencil._power(src, n_power), to_red)
             x_new = exact_solve(p, coef).to(torch.float32)
             return dst + _f32(F_RELAX) * (x_new - dst)
-        return stencil.scalaron_half_sweep(src, dst, hb, coef, to_red,
-                                           F_RELAX, n_power)
+    else:
+        c0_q = _f32(np.float32(h2) * np.float32(q))
+        coef_r, coef_b = ((c0_q, c0_q) if rhs is None else
+                          (c0_q - rhs_r, c0_q - rhs_b))
+
+        def half(src, dst, hb, coef, to_red):
+            return stencil.scalaron_half_sweep(src, dst, hb, coef, to_red,
+                                               F_RELAX, n_power)
 
     for _ in range(n_smoothing):
         red = half(black, red, hb_r, coef_r, True)

@@ -135,4 +135,4 @@ def smoothing(x: torch.Tensor, b: torch.Tensor, q, n_smoothing: int,
     cubic.smoothing: cube-sum neighbours and the quartic root)."""
     return packed_scalaron_smoothing(
         x, b, q, n_smoothing, rhs, exact_root, n_power=3,
-        exact_solve=solution_quartic_equation, exact_scale=1.0)
+        exact_solve=solution_quartic_equation)

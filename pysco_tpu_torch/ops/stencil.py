@@ -1,6 +1,9 @@
 """Multigrid stencil kernels: the red-black half-sweep (linear and f(R)
-scalaron), the residual norm, the fused restriction and the prolongation
-(the PyTorch/CUDA counterpart of ``pysco_tpu/ops/pallas_stencil.py``).
+scalaron, the latter with a float32 Newton root or the float64 closed-form
+cubic root), the residual norm, the fused restriction and the
+prolongation (the PyTorch/CUDA counterpart of
+``pysco_tpu/ops/pallas_stencil.py``; the closed-form sweep has no Pallas
+kernel: the JAX package takes those roots in plain jnp).
 
 Each kernel is hand-written CUDA (``csrc/half_sweep.cu``,
 ``csrc/scalaron_sweep.cu``, ``csrc/residual.cu``,
@@ -20,6 +23,7 @@ float32 constants (``np.float32(1/6)``, ``np.float32(1/(n*n))``).
 from __future__ import annotations
 
 import ctypes
+import math
 from functools import lru_cache
 
 import numpy as np
@@ -28,10 +32,12 @@ import torch
 from .mesh import prolongation, restriction
 
 F32 = torch.float32
+F64 = torch.float64
 
 # kernel launches by the CUDA wrappers (one per wrapper call); the CPU
 # twins do not count
-LAUNCHES = {"half_sweep": 0, "scalaron_half_sweep": 0, "residual_norm2": 0,
+LAUNCHES = {"half_sweep": 0, "scalaron_half_sweep": 0,
+            "scalaron_exact_half_sweep": 0, "residual_norm2": 0,
             "restrict3": 0, "add_prolongation": 0}
 
 #: residual kind -> (kernel enum, neighbour power, needs b); the kinds of
@@ -107,6 +113,47 @@ def _power(x: torch.Tensor, power: int) -> torch.Tensor:
     return x
 
 
+def _cbrt(v: torch.Tensor) -> torch.Tensor:
+    """Real cube root of a float64 tensor, negative values included (torch
+    has no ``cbrt``)."""
+    return torch.sign(v) * torch.abs(v) ** (1.0 / 3.0)
+
+
+def _f64(v, like: torch.Tensor) -> torch.Tensor:
+    """A float or tensor as float64 on ``like``'s device, broadcast to its
+    shape."""
+    return torch.as_tensor(v, dtype=F64, device=like.device).expand(
+        like.shape)
+
+
+def solution_cubic_equation(p: torch.Tensor, d1) -> torch.Tensor:
+    """Real root of u^3 + p u + d1/27 = 0 (float64, branchless; the JAX
+    package's ``cubic.solution_cubic_equation``)."""
+    p = p.to(F64)
+    d1 = _f64(d1, p)
+    inv3 = 1.0 / 3.0
+    d = d1 * d1 + 108.0 * (p * p * p)
+
+    # d > 0: the single real root, by Cardano
+    d_pos = torch.where(d > 0.0, d, 1.0)
+    dd = d1 + torch.sqrt(d_pos)
+    dd_safe = torch.where(dd == 0.0, 1.0, dd)
+    C = _cbrt(0.5 * dd_safe)
+    root_pos = torch.where(dd == 0.0, -inv3 * _cbrt(d1),
+                           -inv3 * (C - 3.0 * p / C))
+
+    # d < 0: three real roots, the trigonometric one at (theta + 2 pi)/3
+    d0 = torch.where(d < 0.0, -3.0 * p, 1.0)
+    dn = d1 / (2.0 * d0 ** 1.5)
+    theta = torch.arccos(torch.clamp(dn, -1.0, 1.0))
+    root_neg = -2.0 * inv3 * torch.sqrt(d0) * torch.cos(
+        inv3 * (theta + 2.0 * math.pi))
+
+    root_zero = -inv3 * _cbrt(d1)
+    return torch.where(d > 0.0, root_pos,
+                       torch.where(d < 0.0, root_neg, root_zero))
+
+
 def residual_plain(kind: str, x, b=None, rhs=None, q=None) -> torch.Tensor:
     """The per-cell residual of ``kind`` (``pallas_stencil._residual_block``
     on the full lattice); with ``rhs`` it is rhs - op."""
@@ -171,6 +218,16 @@ def scalaron_half_sweep_plain(src, dst, hb, coef, to_red: bool,
     return dst + _f32(f_relax) * (x - dst)
 
 
+def scalaron_exact_half_sweep_plain(src, dst, hb, d1_q: float,
+                                    to_red: bool, f_relax: float,
+                                    rhs=None) -> torch.Tensor:
+    """Twin of :func:`scalaron_exact_half_sweep`."""
+    coef = d1_q if rhs is None else d1_q - 27.0 * rhs.double()
+    p = hb - _INVSIX * packed_neighbour_sum(_power(src, 2), to_red)
+    x_new = solution_cubic_equation(p, coef).to(F32)
+    return dst + _f32(f_relax) * (x_new - dst)
+
+
 def residual_norm2_plain(kind: str, x, b=None, rhs=None,
                          q=None) -> torch.Tensor:
     """Twin of :func:`residual_norm2`."""
@@ -210,6 +267,9 @@ def _kernels():
     lib.pysco_half_sweep.argtypes = [P, P, P, P, P, I, I, F, P]
     lib.pysco_scalaron_half_sweep.argtypes = [P, P, P, P, F, P, I, I, F, I,
                                               I, P]
+    lib.pysco_scalaron_exact_half_sweep.argtypes = [P, P, P, P,
+                                                    ctypes.c_double, P, I,
+                                                    I, F, P]
     lib.pysco_norm2_blocks.argtypes = [I]
     lib.pysco_residual_norm2.argtypes = [I, P, P, P, I, F, F, F, P, P, P]
     lib.pysco_norm2_variant_blocks.argtypes = [I, I]
@@ -218,8 +278,8 @@ def _kernels():
     lib.pysco_restrict3.argtypes = [I, P, P, P, I, F, F, F, P, P, P, P]
     lib.pysco_add_prolongation.argtypes = [P, P, P, I, P]
     for fn in (lib.pysco_half_sweep, lib.pysco_scalaron_half_sweep,
-               lib.pysco_norm2_blocks, lib.pysco_residual_norm2,
-               lib.pysco_norm2_variant_blocks,
+               lib.pysco_scalaron_exact_half_sweep, lib.pysco_norm2_blocks,
+               lib.pysco_residual_norm2, lib.pysco_norm2_variant_blocks,
                lib.pysco_residual_norm2_variant, lib.pysco_restrict3,
                lib.pysco_add_prolongation):
         fn.restype = I
@@ -288,6 +348,20 @@ def half_sweep(src, dst, h2b, to_red: bool, f_relax: float, rhs=None):
     return out
 
 
+def _check_sweep(name: str, n: int, **tensors) -> None:
+    """The scalaron sweeps' operands: n a multiple of 4 (the kernels move
+    float4s), each tensor (n, n/2, n) and 16-byte aligned."""
+    _check_n(name, n)
+    if n % 4:
+        raise ValueError(f"{name}: grid size {n} must be a multiple of 4 "
+                         "(the kernel moves float4s)")
+    for tname, t in tensors.items():
+        _check(f"{name} {tname}", t, (n, n // 2, n))
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{name} {tname}: the kernel needs a 16-byte "
+                             "aligned tensor")
+
+
 def scalaron_half_sweep(src, dst, hb, coef, to_red: bool, f_relax: float,
                         n_power: int, newton_iters: int = 3):
     """One colour half of the packed nonlinear f(R) scalaron sweep on
@@ -304,17 +378,8 @@ def scalaron_half_sweep(src, dst, hb, coef, to_red: bool, f_relax: float,
         raise ValueError(f"scalaron_half_sweep: n_power={n_power}, should "
                          "be 2 (f(R) n = 1) or 3 (n = 2)")
     n = src.shape[0]
-    _check_n("scalaron_half_sweep", n)
-    if n % 4:
-        raise ValueError(f"scalaron_half_sweep: grid size {n} must be a "
-                         "multiple of 4 (the kernel moves float4s)")
-    shape = (n, n // 2, n)
-    for name, t in (("src", src), ("dst", dst), ("hb", hb),
-                    ("coef", coef if plane else None)):
-        _check(f"scalaron_half_sweep {name}", t, shape)
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"scalaron_half_sweep {name}: the kernel "
-                             "needs a 16-byte aligned tensor")
+    _check_sweep("scalaron_half_sweep", n, src=src, dst=dst, hb=hb,
+                 coef=coef if plane else None)
     out = torch.empty_like(dst)
     err = _kernels().pysco_scalaron_half_sweep(
         src.data_ptr(), dst.data_ptr(), hb.data_ptr(),
@@ -324,6 +389,30 @@ def scalaron_half_sweep(src, dst, hb, coef, to_red: bool, f_relax: float,
         _stream(out))
     _raise_on(err, "scalaron_half_sweep")
     LAUNCHES["scalaron_half_sweep"] += 1
+    return out
+
+
+def scalaron_exact_half_sweep(src, dst, hb, d1_q: float, to_red: bool,
+                              f_relax: float, rhs=None) -> torch.Tensor:
+    """One colour half of the packed f(R) n = 1 scalaron sweep with the
+    float64 closed-form root, on (n, n/2, n) half-lattices: p = hb -
+    sum_nb(src^2)/6 in float32, the real root of u^3 + p u + d1/27 = 0
+    (:func:`solution_cubic_equation`) with d1 = d1_q (27 h^2 q, a float)
+    or d1_q - 27 rhs (``rhs`` an (n, n/2, n) float32 plane), cast to
+    float32, and dst + f_relax (root - dst)."""
+    if not _on_cuda("scalaron_exact_half_sweep", src, dst, hb, rhs):
+        return scalaron_exact_half_sweep_plain(src, dst, hb, d1_q, to_red,
+                                               f_relax, rhs)
+    n = src.shape[0]
+    _check_sweep("scalaron_exact_half_sweep", n, src=src, dst=dst, hb=hb,
+                 rhs=rhs)
+    out = torch.empty_like(dst)
+    err = _kernels().pysco_scalaron_exact_half_sweep(
+        src.data_ptr(), dst.data_ptr(), hb.data_ptr(), _ptr(rhs),
+        float(d1_q), out.data_ptr(), n, int(bool(to_red)), _f32(f_relax),
+        _stream(out))
+    _raise_on(err, "scalaron_exact_half_sweep")
+    LAUNCHES["scalaron_exact_half_sweep"] += 1
     return out
 
 

@@ -25,6 +25,8 @@ from pysco_tpu_torch.ops import fourier, stencil, tiled_pm
 from pysco_tpu_torch.ops.mesh import periodic_wrap
 from pysco_tpu_torch.utils import io as iostream
 
+from exact_root_states import exact_states
+
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
@@ -719,10 +721,73 @@ def test_scalaron_half_sweep_zero_steps_match_twin(cuda, power):
                                                    True, 1.25, power), src)
 
 
-def test_fr_run_reproducible(cuda, tmp_path):
+@pytest.mark.parametrize("n", [4, 8, 64, 256, 512])
+def test_scalaron_exact_half_sweep_matches_twin(cuda, n):
+    """The exact-root sweep against its twin, bitwise (the float64 closed
+    form with torch's libdevice calls, --fmad=false), on every branch,
+    with a scalar d1 and the rhs plane, both colours; on the cells where
+    libdevice's pow(x, 1.5) differs from torch's by a float64 ulp, within
+    one float32 ulp."""
+    for name, ((src, dst, hb, rhs), d1_q) in exact_states(n, cuda).items():
+        for r in (None, rhs):
+            for to_red in (True, False):
+                before = stencil.LAUNCHES["scalaron_exact_half_sweep"]
+                got = stencil.scalaron_exact_half_sweep(src, dst, hb, d1_q,
+                                                        to_red, 1.25, r)
+                assert (stencil.LAUNCHES["scalaron_exact_half_sweep"]
+                        == before + 1)
+                want = stencil.scalaron_exact_half_sweep_plain(
+                    src, dst, hb, d1_q, to_red, 1.25, r)
+                ulps = (got.view(torch.int32).long()
+                        - want.view(torch.int32).long()).abs()
+                assert int(ulps.max()) <= (1 if name == "pow" else 0)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        x = torch.zeros((6, 3, 6), device=cuda)
+        stencil.scalaron_exact_half_sweep(x, x, x, -1.0, True, 1.25)
+
+
+def test_exact_smoothing_launches_the_kernel(cuda):
+    """cubic.smoothing with exact roots on the card launches the exact
+    sweep twice a sweep and counts it in a profiled step; the quartic's
+    exact roots (n = 2) keep their torch path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysco_tpu_torch.models import cubic, quartic
+    from pysco_tpu_torch.utils import profiling
+
+    n, sweeps = 16, 3
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    x = 0.2 + 0.01 * torch.rand((n, n, n), generator=gen, device=cuda)
+    b = torch.randn((n, n, n), generator=gen, device=cuda)
+    before = stencil.LAUNCHES["scalaron_exact_half_sweep"]
+    cubic.smoothing(x, b, -0.1, sweeps, exact_root=True)
+    assert (stencil.LAUNCHES["scalaron_exact_half_sweep"]
+            == before + 2 * sweeps)
+    profiling.reset_spans()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]):
+            with profiling.step_span(x):
+                cubic.smoothing(x, b, -0.1, sweeps, rhs=1e-3 * b,
+                                exact_root=True)
+        (root,) = [r for r in profiling.span_records()
+                   if r["name"] == "step"]
+        assert root["counters"]["exact_root_sweeps"] == 2 * sweeps
+    finally:
+        profiling.reset_spans()
+    before = dict(stencil.LAUNCHES)
+    quartic.smoothing(x, b, -0.1, sweeps, exact_root=True)
+    assert stencil.LAUNCHES == before
+
+
+@pytest.mark.parametrize("root", ["newton", "exact"])
+def test_fr_run_reproducible(cuda, tmp_path, monkeypatch, root):
     """An f(R) n = 1 multigrid run twice on the card (device ICs): bitwise
-    equal final snapshots and P(k), and every kernel, the scalaron sweep
-    among them, launched on every step."""
+    equal final snapshots and P(k), and every kernel of the root's path,
+    its scalaron sweep among them, launched on every step. With the exact
+    roots the second run takes the sweep's torch twin in place of the
+    kernel: the kernel changes no bit of the run."""
     from pysco_tpu_torch import ic_device
 
     pk_file = tmp_path / "pk.dat"
@@ -738,11 +803,19 @@ def test_fr_run_reproducible(cuda, tmp_path):
         "save_power_spectrum": "yes", "integrator": "leapfrog",
         "mass_scheme": "CIC", "Courant_factor": 1.0,
         "max_aexp_stepping": 10, "linear_newton_solver": "multigrid",
-        "gradient_stencil_order": 5, "verbose": 0,
+        "gradient_stencil_order": 5, "verbose": 0, "fR_root_solver": root,
     }
     assert ic_device.supported(param)
+    # the slab mode's call forms, and the other root's sweep
+    idle = {"deposit_slab", "gather_slab",
+            "scalaron_half_sweep" if root == "exact"
+            else "scalaron_exact_half_sweep"}
     outs = []
     for tag in ("a", "b"):
+        if root == "exact" and tag == "b":
+            monkeypatch.setattr(stencil, "scalaron_exact_half_sweep",
+                                stencil.scalaron_exact_half_sweep_plain)
+            idle.add("scalaron_exact_half_sweep")
         base = tmp_path / tag
         stencil.reset_launches()
         tiled_pm.reset_launches()
@@ -750,8 +823,8 @@ def test_fr_run_reproducible(cuda, tmp_path):
         prev = dict.fromkeys(recs[0].launches, 0)
         for r in recs:
             for k, v in r.launches.items():
-                if k in ("deposit_slab", "gather_slab"):
-                    assert v == 0  # the slab mode's call forms
+                if k in idle:
+                    assert v == 0
                     continue
                 assert v > prev[k], (r.nsteps, k)
             prev = dict(r.launches)
