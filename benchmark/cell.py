@@ -3,7 +3,9 @@
 Everything that belongs to a configuration, a traffic mix, a metric or a
 cell's limits is a file found by its name:
 
-- ``configs/<config>.json``: the parameters as run (``param``);
+- ``configs/<config>.json``: the parameters as run (``param``) and,
+  optionally, the name of its reference module (``reference``; see
+  ``check.py``);
 - ``traffic/<traffic>.json``: the loop's cadence and its warm-up;
 - ``metrics/<metric>.py``: ``read(ctx)`` returns the metric or None;
 - ``limits/<workload>.json``: the limit of each compared number.
@@ -207,6 +209,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     param = _param(config, seed, base,
                    {**traffic["param"], **(overrides or {})}, here)
     param["z_out"] = list(param["z_out"])
+    ref = check.reference_for(cell["config"], config, param, here)
 
     sim, held, ic_s = _set_up(param, traffic, seed, dev, base)
     peak_setup = 0
@@ -245,7 +248,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     _hold_checked_step(sim, held)
     _free(cuda)
     numbers = check.reference_numbers(
-        param, seed, held, dev, check.program_outputs(held))
+        param, seed, held, dev, check.program_outputs(held), ref)
     correct, rows = check.judge(numbers, limits)
 
     ctx = SimpleNamespace(
@@ -283,7 +286,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     if control:
         result["control_numbers"] = check.reference_numbers(
             param, seed, held, dev,
-            check.control_outputs(param, seed, held, dev))
+            check.control_outputs(param, seed, held, dev, ref=ref), ref)
     # last: each compared number beside its limit
     result["checks"] = {k: [v, lim] for k, v, lim in rows}
     del held, sim

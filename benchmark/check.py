@@ -14,21 +14,50 @@ step from the program's own state, and checks the start by itself:
   (the one that reaches the first output after the window closes), from
   the state the program held before it. Particle order is the program's
   own business, so the program's particles and the reference's are each
-  deposited by the reference (CIC, float64) with weight 1, with each
-  velocity component and with each acceleration component, and the grids
-  compared: norm of the difference over the norm of the reference's
-  density contrast, momentum or acceleration field;
+  deposited by ``pm.deposit`` (CIC, float64, whatever the configuration's
+  mass scheme: the yardstick is the same in every cell) with weight 1,
+  with each velocity component and with each acceleration component, and
+  the grids compared: norm of the difference over the norm of the
+  reference's density contrast, momentum or acceleration field;
 - ``pk``: the P(k) the program computed at that output against the
   reference's P(k) of the program's own particles: the largest relative
   gap over the bins.
 
 The control is the reference itself in bfloat16 put in the program's
 place (:func:`control_outputs`); it must fail.
+
+**A configuration's reference module.** The force model belongs to the
+configuration: its file (``configs/<config>.json``) may name a module
+with the top-level key ``"reference": "<module>"``, the file
+``reference/<module>.py``, loaded as ``reference.<module>`` so that it may
+import ``pm``, ``fas``, ``ics``, ``cosmology`` and ``precision`` relatively.
+Without the key the module is ``pm``. It provides, with ``pm``'s
+signatures (``prec`` a :class:`reference.precision.Precision`, ``scheme``
+the mass scheme, ``"ngp"``, ``"cic"`` or ``"tsc"``):
+
+- ``Forces(param, prec)``: reads the parameters and allocates nothing;
+  raises ``NotImplementedError`` for a configuration it cannot follow,
+  which is how :func:`reference_for` asks it, before the program's
+  set-up. Its attributes ``prec``, ``scheme`` and ``p`` (the mass scheme's
+  window exponent, 1, 2 or 3); called as ``forces(rho, aexp, u_start)``
+  it returns ``(force (3, n, n, n), u)``, u the extra field the next
+  solve starts from (None where there is none);
+- ``density(pos, n, npart, prec, scheme)``: (n, n, n) density over its
+  mean of (3, N) positions;
+- ``gather(fields, pos, prec, scheme)``: (C, n, n, n) fields at (3, N)
+  positions, (C, N);
+- ``step(param, forces, pos, vel, acc, u, dt, aexp)``: one leapfrog step,
+  ``(pos, vel, acc, rho, u)`` after it;
+- ``power_spectrum(dens, p, prec)``: ``(k, Pk, Nmodes)``;
+- optionally ``lpt2(param, seed, device, prec)``, the 2LPT particles at
+  z_start, where the theory changes their growth (else ``ics.lpt2``).
 """
 
 from __future__ import annotations
 
+import importlib.util
 import math
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -39,6 +68,7 @@ from reference.precision import BF16, F64, Precision
 NAMES = ("ic_dx_cells", "ic_dv", "pm0_da", "step_drho", "step_dmom",
          "step_dacc", "pk")
 SAMPLE = 65536
+CONTRACT = ("Forces", "density", "gather", "step", "power_spectrum")
 
 
 def sample_sites(seed: int, npart: int) -> np.ndarray:
@@ -82,6 +112,32 @@ def _max_gap(a, b):
     return float(torch.max(torch.abs(a.double() - b.double())))
 
 
+def reference_for(config_name: str, config: dict, param, here: Path):
+    """The reference module of a configuration (``reference/<name>.py`` of
+    the benchmark directory ``here``, loaded as ``reference.<name>``), once
+    it has accepted the parameters as run; stops the run with the reason
+    where it has not."""
+    name = config.get("reference", "pm")
+    path = here / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise SystemExit(f"configuration {config_name!r}: no reference "
+                         f"module {name!r} (reference/{name}.py)")
+    mod_spec = importlib.util.spec_from_file_location(f"reference.{name}",
+                                                      path)
+    ref = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(ref)
+    missing = [k for k in CONTRACT if not callable(getattr(ref, k, None))]
+    if missing:
+        raise SystemExit(f"configuration {config_name!r}: reference module "
+                         f"{name!r} lacks {', '.join(missing)}")
+    try:
+        ref.Forces(param, F64)
+    except NotImplementedError as e:
+        raise SystemExit(f"configuration {config_name!r}: reference module "
+                         f"{name!r} refuses it: {e}") from None
+    return ref
+
+
 def _field_gap(pos_c, w_c, pos_r, w_r, n, contrast=False):
     g_c = pm.deposit(pos_c, n, w_c)
     g_r = pm.deposit(pos_r, n, w_r)
@@ -108,34 +164,36 @@ class Held:
         self.pk = None  # (k, Pk, Nmodes)
 
 
-def reference_numbers(param, seed: int, held: Held, device,
-                      cand: dict) -> dict:
+def reference_numbers(param, seed: int, held: Held, device, cand: dict,
+                      ref=pm) -> dict:
     """Each number of ``NAMES`` for the candidate outputs ``cand`` (the
     program's, from ``held``, or the control's) against the float64
-    reference."""
+    reference module ``ref``."""
     n = 2 ** int(param["ncoarse"])
     npart = int(param["npart"])
     out = {}
     sites = torch.as_tensor(held.sites, device=device)
     # the start: 2LPT, then the first force evaluation on it
-    pos0, vel0 = ics.lpt2(param, seed, device, F64)
+    pos0, vel0 = getattr(ref, "lpt2", ics.lpt2)(param, seed, device, F64)
     out["ic_dx_cells"] = float(torch.max(_periodic_cells(
         cand["ic_pos"], pos0[:, sites], n)))
     vs = vel0[:, sites]
     out["ic_dv"] = _max_gap(cand["ic_vel"], vs) / _rms(vs)
     del vel0, vs
-    forces = pm.Forces(param, F64)
-    force, _ = forces(pm.density(pos0, n, npart), held.step["aexp0"])
+    forces = ref.Forces(param, F64)
+    scheme = forces.scheme
+    force, _ = forces(ref.density(pos0, n, npart, F64, scheme),
+                      held.step["aexp0"])
     p0 = pos0[:, torch.as_tensor(cand["pm0_sites"], device=device)]
     del pos0
-    a_ref = pm.gather(force, p0)
+    a_ref = ref.gather(force, p0, F64, scheme)
     del force
     out["pm0_da"] = _max_gap(cand["pm0_acc"], a_ref) / _rms(a_ref)
     del a_ref, p0
     # one step of the loop from the program's state
     x0, v0, a0, u0 = held.step_in
-    x1, v1, a1, _, _ = pm.step(param, forces, x0[:3], v0[:3], a0[:3], u0,
-                               held.step["dt"], held.step["aexp"])
+    x1, v1, a1, _, _ = ref.step(param, forces, x0[:3], v0[:3], a0[:3], u0,
+                                held.step["dt"], held.step["aexp"])
     xc, vc, ac = cand["step_out"]
     out["step_drho"] = _field_gap(xc, None, x1, None, n, contrast=True)
     out["step_dmom"] = max(_field_gap(xc, vc[i], x1, v1[i], n)
@@ -143,7 +201,8 @@ def reference_numbers(param, seed: int, held: Held, device,
     out["step_dacc"] = max(_field_gap(xc, ac[i], x1, a1[i], n)
                            for i in range(3))
     del x1, v1, a1
-    _, p_r, n_r = pm.power_spectrum(pm.density(xc, n, npart), forces.p)
+    _, p_r, n_r = ref.power_spectrum(
+        ref.density(xc, n, npart, F64, scheme), forces.p, F64)
     _, p_c, n_c = (torch.as_tensor(t, device=device).double()
                    for t in cand["pk"])
     gap = float(torch.max(torch.abs(p_c / p_r - 1.0)))
@@ -160,25 +219,26 @@ def program_outputs(held: Held) -> dict:
 
 
 def control_outputs(param, seed: int, held: Held, device,
-                    prec: Precision = BF16) -> dict:
-    """The reference computed in bfloat16, in the program's place: its own
-    2LPT, first force and step from the same inputs."""
+                    prec: Precision = BF16, ref=pm) -> dict:
+    """The reference module ``ref`` computed in bfloat16, in the program's
+    place: its own 2LPT, first force and step from the same inputs."""
     n = 2 ** int(param["ncoarse"])
     npart = int(param["npart"])
     sites = torch.as_tensor(held.sites, device=device)
-    pos0, vel0 = ics.lpt2(param, seed, device, prec)
+    pos0, vel0 = getattr(ref, "lpt2", ics.lpt2)(param, seed, device, prec)
     out = {"ic_pos": pos0[:, sites].clone(),
            "ic_vel": vel0[:, sites].clone(), "pm0_sites": held.sites}
     del vel0
-    forces = pm.Forces(param, prec)
-    force, _ = forces(pm.density(pos0, n, npart, prec), held.step["aexp0"])
-    out["pm0_acc"] = pm.gather(force, pos0[:, sites], prec)
+    forces = ref.Forces(param, prec)
+    force, _ = forces(ref.density(pos0, n, npart, prec, forces.scheme),
+                      held.step["aexp0"])
+    out["pm0_acc"] = ref.gather(force, pos0[:, sites], prec, forces.scheme)
     del force, pos0
     x0, v0, a0, u0 = held.step_in
-    x1, v1, a1, rho, _ = pm.step(param, forces, x0[:3], v0[:3], a0[:3], u0,
-                                 held.step["dt"], held.step["aexp"])
+    x1, v1, a1, rho, _ = ref.step(param, forces, x0[:3], v0[:3], a0[:3], u0,
+                                  held.step["dt"], held.step["aexp"])
     out["step_out"] = (x1, v1, a1)
-    out["pk"] = pm.power_spectrum(rho, forces.p, prec)
+    out["pk"] = ref.power_spectrum(rho, forces.p, prec)
     return out
 
 

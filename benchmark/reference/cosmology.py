@@ -49,6 +49,11 @@ class Cosmology:
         return np.sqrt(self.Om * a ** -3 + self.Or * a ** -4
                        + self.Ode * self.de_scale(a))
 
+    def mu(self, a):
+        """G_eff / G in the growth of structure: 1 in general relativity; a
+        configuration's reference module may replace it."""
+        return 1.0
+
     def _solve_growth(self):
         """D1, dD1/dlna, D2, dD2/dlna on a dense ln a solution."""
         a_eq = self.Or / self.Om if self.Or else 2e-7
@@ -60,7 +65,7 @@ class Cosmology:
             om = self.Om * a ** -3 / e2
             orad = self.Or * a ** -4 / e2
             ode = self.Ode * self.de_scale(a) / e2
-            beta = 1.5 * om
+            beta = 1.5 * om * self.mu(a)
             gamma = 0.5 * (1.0 - 3.0 * ode * (self.w0 + self.wa * (1.0 - a))
                            - orad)
             D1, dD1, D2, dD2 = y

@@ -122,16 +122,18 @@ def second_order_source(phi1k, prec):
     return rhs
 
 
-def lpt2(param, seed: int, device, prec: Precision = F64):
+def lpt2(param, seed: int, device, prec: Precision = F64,
+         cosmo: Cosmology | None = None):
     """2LPT particles of the lattice at z_start: positions wrapped into
-    [0, 1) and velocities, each (3, n^3) in lattice order (x slowest)."""
+    [0, 1) and velocities, each (3, n^3) in lattice order (x slowest).
+    ``cosmo`` gives the growth (None: ``Cosmology(param)``)."""
     if (str(param["initial_conditions"]).casefold() != "2lpt"
             or bool(param["fixed_ICS"]) or bool(param["paired_ICS"])
             or bool(param["dealiased_ICS"])):
         raise NotImplementedError("the reference builds plain 2LPT only")
     n = round(int(param["npart"]) ** (1.0 / 3.0))
     a = 1.0 / (1.0 + float(param["z_start"]))
-    d1, v1, d2, v2 = Cosmology(param).lpt_coefficients(a)
+    d1, v1, d2, v2 = (cosmo or Cosmology(param)).lpt_coefficients(a)
     delta = white_noise(seed, n, device, prec)
     delta = prec.q(delta * transfer(param["power_spectrum_file"],
                                     float(param["boxlen"]), n, device, prec))

@@ -1,6 +1,6 @@
-"""Particle-mesh step of PySCo, in plain torch: CIC deposit and
-interpolation, the Poisson solves, the 5-point gradient, the kick-drift
-and wrap, and the binned power spectrum.
+"""Particle-mesh step of PySCo, in plain torch: NGP, CIC and TSC deposit
+and interpolation, the Poisson solves, the 5-point gradient, the
+kick-drift and wrap, and the binned power spectrum.
 
 Conventions (PySCo's): positions in box units [0, 1), cell centres at
 (i + 1/2)/n; the density is the particle count per cell over its mean;
@@ -24,54 +24,73 @@ from .precision import F64, Precision
 CHUNK = 1 << 24
 
 
-def _corners(xs: torch.Tensor, n: int):
-    """CIC base cells and weights of (3, c) positions: per axis the cells
-    floor(x n - 1/2) and the next one, with weights 1 - f and f."""
-    s = xs * n - 0.5
-    base = torch.floor(s)
-    f = s - base
-    base = base.to(torch.int64) % n
-    return base, (base + 1) % n, 1.0 - f, f
+MAS_INDEX = {"ngp": 1, "cic": 2, "tsc": 3}
 
 
-def _each_corner(xs, n, prec):
-    """(flat cell index, weight) of each of the 8 CIC corners."""
-    lo, hi, w_lo, w_hi = _corners(xs, n)
-    cells, weights = (lo, hi), (w_lo, w_hi)
-    for cx in (0, 1):
-        for cy in (0, 1):
-            for cz in (0, 1):
+def _support(xs: torch.Tensor, n: int, scheme: str):
+    """Per axis, the cells a particle of the (3, c) positions reaches and
+    their weights, PySCo's: NGP the occupied cell floor(x n); CIC the cells
+    floor(x n - 1/2) and the next, weights 1 - f and f; TSC the occupied
+    cell and its two neighbours, weights 1/2 (1/2 - d)^2, 3/4 - d^2 and
+    1/2 (1/2 + d)^2, d the offset from the occupied cell's centre."""
+    if scheme == "cic":
+        s = xs * n - 0.5
+        base = torch.floor(s)
+        f = s - base
+        base = base.to(torch.int64) % n
+        return (base, (base + 1) % n), (1.0 - f, f)
+    mid = torch.floor(xs * n)
+    if scheme == "ngp":
+        return (mid.to(torch.int64) % n,), (torch.ones_like(xs),)
+    if scheme != "tsc":
+        raise NotImplementedError(f"mass scheme {scheme!r}")
+    d = xs * n - 0.5 - mid
+    mid = mid.to(torch.int64)
+    return (((mid - 1) % n, mid % n, (mid + 1) % n),
+            (0.5 * (0.5 - d) ** 2, 0.75 - d * d, 0.5 * (0.5 + d) ** 2))
+
+
+def _each_corner(xs, n, prec, scheme):
+    """(flat cell index, weight) of each cell of the scheme's support."""
+    cells, weights = _support(xs, n, scheme)
+    support = range(len(cells))
+    for cx in support:
+        for cy in support:
+            for cz in support:
                 flat = (cells[cx][0] * n + cells[cy][1]) * n + cells[cz][2]
                 yield flat, prec.q(weights[cx][0] * weights[cy][1]
                                    * weights[cz][2])
 
 
 def deposit(pos: torch.Tensor, n: int, weight=None,
-            prec: Precision = F64) -> torch.Tensor:
-    """CIC sum over particles of ``weight`` (1 when None) per cell."""
+            prec: Precision = F64, scheme: str = "cic") -> torch.Tensor:
+    """Sum over particles of ``weight`` (1 when None) per cell, assigned by
+    the mass scheme."""
     grid = torch.zeros(n ** 3, dtype=prec.real, device=pos.device)
     for c0 in range(0, pos.shape[1], CHUNK):
         xs = prec.t(pos[:3, c0:c0 + CHUNK])
         wp = None if weight is None else prec.t(weight[c0:c0 + CHUNK])
-        for flat, w in _each_corner(xs, n, prec):
+        for flat, w in _each_corner(xs, n, prec, scheme):
             grid.index_add_(0, flat, w if wp is None else prec.q(w * wp))
     return prec.q(grid.reshape(n, n, n))
 
 
 def density(pos: torch.Tensor, n: int, npart: int,
-            prec: Precision = F64) -> torch.Tensor:
-    return prec.q(deposit(pos, n, None, prec) * (n ** 3 / npart))
+            prec: Precision = F64, scheme: str = "cic") -> torch.Tensor:
+    return prec.q(deposit(pos, n, None, prec, scheme) * (n ** 3 / npart))
 
 
 def gather(fields: torch.Tensor, pos: torch.Tensor,
-           prec: Precision = F64) -> torch.Tensor:
-    """CIC interpolation of (C, n, n, n) fields at (3, N) positions."""
+           prec: Precision = F64, scheme: str = "cic") -> torch.Tensor:
+    """Interpolation of (C, n, n, n) fields at (3, N) positions by the mass
+    scheme."""
     c, n = fields.shape[0], fields.shape[1]
     flat_f = fields.reshape(c, -1)
     out = torch.empty((c, pos.shape[1]), dtype=prec.real, device=pos.device)
     for c0 in range(0, pos.shape[1], CHUNK):
         acc = None
-        for flat, w in _each_corner(prec.t(pos[:3, c0:c0 + CHUNK]), n, prec):
+        for flat, w in _each_corner(prec.t(pos[:3, c0:c0 + CHUNK]), n, prec,
+                                    scheme):
             term = prec.q(w * flat_f[:, flat])
             acc = term if acc is None else prec.q(acc + term)
         out[:, c0:c0 + CHUNK] = acc
@@ -144,7 +163,13 @@ def power_spectrum(dens: torch.Tensor, p: int, prec: Precision = F64):
 
 
 class Forces:
-    """The force mesh of a configuration from a density grid."""
+    """The force mesh of a configuration from a density grid.
+
+    ``theories`` are those this class accepts; a configuration's own
+    reference module subclasses it for another theory and may replace
+    ``source``, the right-hand side of the Poisson equation."""
+
+    theories = ("newton", "fr")
 
     def __init__(self, param, prec: Precision = F64):
         self.param = param
@@ -152,22 +177,28 @@ class Forces:
         self.cosmo = Cosmology(param)
         self.theory = str(param["theory"]).casefold()
         self.solver = str(param["linear_newton_solver"]).casefold()
-        self.p = {"ngp": 1, "cic": 2, "tsc": 3}[
-            str(param["mass_scheme"]).casefold()]
-        if self.p != 2 or int(param["gradient_stencil_order"]) != 5:
-            raise NotImplementedError("the reference runs CIC with the "
-                                      "5-point gradient")
-        if self.theory not in ("newton", "fr") or self.solver not in (
+        self.scheme = str(param["mass_scheme"]).casefold()
+        if self.scheme not in MAS_INDEX:
+            raise NotImplementedError(f"mass scheme {self.scheme!r}")
+        self.p = MAS_INDEX[self.scheme]
+        if int(param["gradient_stencil_order"]) != 5:
+            raise NotImplementedError("the reference runs the 5-point "
+                                      "gradient")
+        if self.theory not in self.theories or self.solver not in (
                 "fft", "multigrid"):
             raise NotImplementedError(f"{self.theory}/{self.solver}")
         if self.theory == "fr" and int(param["fR_n"]) != 1:
             raise NotImplementedError("the reference runs f(R) n = 1")
 
+    def source(self, rho, aexp: float):
+        """1.5 a Om_m (rho - 1)."""
+        return self.prec.q(1.5 * aexp * self.cosmo.Om * (rho - 1.0))
+
     def __call__(self, rho, aexp: float, u_start=None):
         """(force (3, n, n, n), u): u is the f(R) scalaron solved from
         ``u_start`` (None: the zero-neighbour root)."""
         prec = self.prec
-        rhs = prec.q(1.5 * aexp * self.cosmo.Om * (rho - 1.0))
+        rhs = self.source(rho, aexp)
         if self.solver == "fft":
             phi = poisson_fft(rhs, self.p, prec)
         else:
@@ -196,9 +227,9 @@ def step(param, forces: Forces, pos, vel, acc, u, dt: float, aexp: float):
     prec = forces.prec
     n = 2 ** int(param["ncoarse"])
     pos, vel = kick_drift(pos, vel, acc, dt, prec)
-    rho = density(pos, n, int(param["npart"]), prec)
+    rho = density(pos, n, int(param["npart"]), prec, forces.scheme)
     force, u = forces(rho, aexp, u)
-    acc = gather(force, pos, prec)
+    acc = gather(force, pos, prec, forces.scheme)
     del force
     vel = prec.q(vel - acc * (0.5 * dt))
     return pos, vel, acc, rho, u

@@ -33,3 +33,14 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     return torch.device("cuda")
+
+
+@pytest.fixture
+def no_set_up(monkeypatch):
+    """The program's initial conditions fail the test if they are built."""
+    from pysco_tpu_torch import ic_device
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the program's set-up ran")
+
+    monkeypatch.setattr(ic_device, "generate_lpt", refuse)

@@ -32,6 +32,14 @@ def test_sound_run_is_correct():
     assert _run()["correct"] is True
 
 
+def test_unsupported_configuration_refused_before_set_up(no_set_up):
+    """QUMOND with no reference module of its own: ``pm`` refuses it
+    before the program builds its initial conditions."""
+    with pytest.raises(SystemExit, match="configuration 'newton_fft_cic_512'"
+                       ": reference module 'pm' refuses it: mond/multigrid"):
+        _run(theory="mond", linear_newton_solver="multigrid")
+
+
 def test_state_left_unchanged(monkeypatch):
     real = integrate.step_lazy_impl
 

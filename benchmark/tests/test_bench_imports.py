@@ -23,21 +23,28 @@ def _loaded(code: str) -> set:
     return set(json.loads(out.strip().splitlines()[-1]))
 
 
+def _modules(sub: str) -> list:
+    return sorted(f[:-3] for f in os.listdir(os.path.join(BENCH, sub))
+                  if f.endswith(".py"))
+
+
+def _import_reference() -> str:
+    """Code that imports every module under ``reference/``: the shared
+    reference and each configuration's own."""
+    return "".join(f"import reference.{m}\n" for m in _modules("reference"))
+
+
 def test_harness_and_reference_load_no_jax():
-    names = sorted(f[:-3] for f in os.listdir(os.path.join(BENCH, "metrics"))
-                   if f.endswith(".py"))
     top = _loaded(
         "import run, cell, check, loop, devtrace, yardstick\n"
-        "import reference.ics, reference.pm, reference.fas\n"
-        "import pysco_tpu_torch.main\n"
-        f"for m in {names!r}: cell.metric_reader(m)\n")
+        + _import_reference() + "import pysco_tpu_torch.main\n"
+        f"for m in {_modules('metrics')!r}: cell.metric_reader(m)\n")
     assert "pysco_tpu_torch" in top
     assert not top & FORBIDDEN
 
 
 def test_reference_loads_nothing_of_the_program():
-    top = _loaded("import reference.ics, reference.pm, reference.fas, "
-                  "reference.cosmology, reference.precision")
+    top = _loaded(_import_reference())
     assert not top & (FORBIDDEN | {"pysco_tpu_torch"})
 
 

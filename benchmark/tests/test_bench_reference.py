@@ -1,6 +1,8 @@
-"""The plain reference against the program on the CPU (16^3-32^3), and
-against a closed form: a Zel'dovich plane wave."""
+"""The plain reference against the program on the CPU (16^3-32^3),
+against a closed form (a Zel'dovich plane wave), and its CIC outputs
+against digests pinned from an earlier version of it."""
 
+import hashlib
 import json
 import math
 import os
@@ -10,7 +12,7 @@ import torch
 
 from reference import fas, ics, pm
 from reference.cosmology import Cosmology, fr_constants
-from reference.precision import F64
+from reference.precision import BF16, F64
 
 from pysco_tpu_torch import cosmo, ic_device, integrate, solver
 from pysco_tpu_torch.models import multigrid
@@ -56,16 +58,18 @@ def _random_particles(n_part, seed=3):
     return torch.rand((n_part, 3), generator=g)
 
 
-def test_deposit_and_gather_match_the_program():
+@pytest.mark.parametrize("scheme", ["ngp", "cic", "tsc"])
+def test_deposit_and_gather_match_the_program(scheme):
     n = 16
     rows = _random_particles(5000)
-    ref = pm.deposit(rows.T.double(), n)
-    got = mesh.deposit(rows, n, "cic")
+    ref = pm.deposit(rows.T.double(), n, scheme=scheme)
+    got = mesh.deposit(rows, n, scheme)
     assert torch.allclose(ref, got.double(), rtol=0, atol=1e-5)
     g = torch.Generator().manual_seed(4)
     field = torch.rand((n, n, n, 3), generator=g)
-    ref = pm.gather(field.permute(3, 0, 1, 2).double(), rows.T.double())
-    got = mesh.gather_vec(field, rows, "cic")
+    ref = pm.gather(field.permute(3, 0, 1, 2).double(), rows.T.double(),
+                    scheme=scheme)
+    got = mesh.gather_vec(field, rows, scheme)
     assert torch.allclose(ref, got.T.double(), rtol=0, atol=1e-5)
 
 
@@ -134,16 +138,17 @@ def test_kick_drift_matches_the_program():
     assert float((v[:3].double() - rv).abs().max()) < 1e-7
 
 
-@pytest.mark.parametrize("config", ["newton_fft_cic_512",
-                                    "fr_n1_mg_cic_512"])
-def test_forces_match_the_program(config, tmp_path):
+@pytest.mark.parametrize("config, scheme", [
+    ("newton_fft_cic_512", "CIC"), ("fr_n1_mg_cic_512", "CIC"),
+    ("newton_fft_cic_512", "TSC")])
+def test_forces_match_the_program(config, scheme, tmp_path):
     n = 32
-    param = _param(config, n, tmp_path, epsrel=1e-6)
+    param = _param(config, n, tmp_path, epsrel=1e-6, mass_scheme=scheme)
     cosmo.generate(param)
     param["aexp"] = 0.5
     set_units(param)
     pos, _ = ics.lpt2(param, 42, "cpu")
-    rho = pm.density(pos, n, n ** 3)
+    rho = pm.density(pos, n, n ** 3, scheme=scheme.casefold())
     cfg = solver.config_from_param(param)
     dyn = solver.compute_dynamics(param)
     potential, u = solver.empty_fields(cfg, "cpu")
@@ -177,3 +182,55 @@ def test_zeldovich_plane_wave(tmp_path):
     assert float((acc[0] - want).abs().max()) < 0.15 * float(
         want.abs().max())
     assert float(acc[1:].abs().max()) < 1e-9 * float(want.abs().max())
+
+
+PIN = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                   "cic_reference_pin.json")
+
+
+def pinned_outputs(tmp_path) -> dict:
+    """The reference's CIC outputs on seeded inputs at 16^3, in float64 and
+    in the control's bfloat16: 2LPT, deposit, density, gather, the forces
+    (Newton FFT; f(R) n = 1 multigrid with its scalaron), a step of each
+    and P(k)."""
+    n = 16
+    newton = _param("newton_fft_cic_512", n, tmp_path)
+    fr = _param("fr_n1_mg_cic_512", n, tmp_path)
+    pos, vel = ics.lpt2(newton, 42, "cpu")
+    out = {"lpt2": (pos, vel)}
+    g = torch.Generator().manual_seed(11)
+    rows = torch.rand((3, 5000), generator=g, dtype=torch.float64)
+    w = torch.randn(5000, generator=g, dtype=torch.float64)
+    field = torch.randn((3, n, n, n), generator=g, dtype=torch.float64)
+    acc = 1e-2 * torch.randn((3, n ** 3), generator=g, dtype=torch.float64)
+    for prec in (F64, BF16):
+        tag = prec.name
+        out[f"deposit.{tag}"] = pm.deposit(rows, n, w, prec)
+        out[f"gather.{tag}"] = pm.gather(field, rows, prec)
+        rho = pm.density(pos, n, n ** 3, prec)
+        out[f"density.{tag}"] = rho
+        out[f"power_spectrum.{tag}"] = pm.power_spectrum(rho, 2, prec)
+        for name, param in (("newton", newton), ("fr", fr)):
+            forces = pm.Forces(param, prec)
+            force, u = forces(rho, 0.5)
+            out[f"forces.{name}.{tag}"] = (force, u)
+            out[f"step.{name}.{tag}"] = pm.step(param, forces, pos, vel, acc,
+                                                u, 0.02, 0.5)
+    return out
+
+
+def _digest(value) -> str:
+    h = hashlib.sha256()
+    for t in value if isinstance(value, tuple) else (value,):
+        if t is not None:
+            h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def test_cic_reference_is_pinned(tmp_path):
+    """Bit for bit: the digests were taken from the reference before it
+    took NGP and TSC and configuration modules."""
+    with open(PIN) as f:
+        want = json.load(f)
+    got = {k: _digest(v) for k, v in pinned_outputs(tmp_path).items()}
+    assert got == want

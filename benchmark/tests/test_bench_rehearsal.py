@@ -78,18 +78,48 @@ def _digest(root):
     return out
 
 
-def test_new_cell_traffic_and_metric_are_files_only(tmp_path):
+def _copy(tmp_path):
+    """A copy of the benchmark without its tests: (benchmark directory,
+    BENCHMARK.json as a dict, digests of every file)."""
     here = tmp_path / "benchmark"
     shutil.copytree(BENCH, here, ignore=shutil.ignore_patterns(
         "__pycache__", "tests"))
     shutil.copy(os.path.join(ROOT, "BENCHMARK.json"), tmp_path)
-    before = _digest(tmp_path)
     bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
-    # a configuration, a traffic mix, a metric and a cell's limits, each a
-    # new file; BENCHMARK.json gains entries
+    return here, bench, _digest(tmp_path)
+
+
+def _add_cell(tmp_path, here, bench, config: dict, name: str) -> None:
+    """A configuration file and a cell of it under lazy traffic with
+    newton512.lazy's limits; BENCHMARK.json gains both entries."""
+    (here / "configs" / f"{name}.json").write_text(json.dumps(config))
+    shutil.copy(here / "limits" / "newton512.lazy.json",
+                here / "limits" / f"tiny.{name}.json")
+    bench["configs"].append(dict(bench["configs"][0], name=name,
+                                 file=f"benchmark/configs/{name}.json"))
+    bench["workloads"].append({"name": f"tiny.{name}", "config": name,
+                               "traffic": "lazy", "chips": 1,
+                               "why": "rehearsal"})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+
+
+def _changed(tmp_path, before) -> set:
+    after = _digest(tmp_path)
+    return {k for k in before if before[k] != after.get(k)}
+
+
+def _newton_config(here, **param) -> dict:
     conf = json.loads((here / "configs" / "newton_fft_cic_512.json")
                       .read_text())
-    conf["param"]["Courant_factor"] = 0.8
+    conf["param"].update(param)
+    return conf
+
+
+def test_new_cell_traffic_and_metric_are_files_only(tmp_path):
+    here, bench, before = _copy(tmp_path)
+    # a configuration, a traffic mix, a metric and a cell's limits, each a
+    # new file; BENCHMARK.json gains entries
+    conf = _newton_config(here, Courant_factor=0.8)
     (here / "configs" / "newton_slow_cfl.json").write_text(json.dumps(conf))
     (here / "traffic" / "every_second_sort.json").write_text(json.dumps(
         {"why": "lazy windows of one cell", "warmup_levels": [0, 1],
@@ -110,13 +140,57 @@ def test_new_cell_traffic_and_metric_are_files_only(tmp_path):
                                "layer": "run loop", "moves": "step_ms",
                                "workloads": ["tiny.every_second_sort"]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
-    after = _digest(tmp_path)
-    changed = {k for k in before if before[k] != after.get(k)}
-    assert changed == {"BENCHMARK.json"}
+    assert _changed(tmp_path, before) == {"BENCHMARK.json"}
     res = _line(cell.run_cell("tiny.every_second_sort", SEED, 1.0, True,
                               "cpu", overrides=TINY, here=here))
     assert res["correct"] is True
     assert "spans_done" in res["metrics"]
+
+
+MODULE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "parametrized_reference.py")
+
+
+@pytest.mark.parametrize("kind", ["tsc", "module"])
+def test_new_configuration_is_files_only(kind, tmp_path):
+    """A TSC configuration, and a configuration whose force model comes as
+    its own reference module (PySCo's parametrized mu(a)), each added as
+    new files: the check follows both and finds them correct."""
+    here, bench, before = _copy(tmp_path)
+    if kind == "tsc":
+        conf = _newton_config(here, mass_scheme="TSC")
+    else:
+        conf = _newton_config(here, theory="parametrized",
+                              parametrized_mu0=-0.1)
+        conf["reference"] = "parametrized"
+        shutil.copy(MODULE, here / "reference" / "parametrized.py")
+    _add_cell(tmp_path, here, bench, conf, kind)
+    assert _changed(tmp_path, before) == {"BENCHMARK.json"}
+    res = _line(cell.run_cell(f"tiny.{kind}", SEED, 1.0, False, "cpu",
+                              overrides=TINY, here=here))
+    assert res["correct"] is True
+    for name, (value, limit) in res["checks"].items():
+        assert value <= limit, name
+
+
+@pytest.mark.parametrize("source, refusal", [
+    (None, "no reference module 'qumond'"),
+    ("from .pm import Forces\n", "reference module 'qumond' lacks density, "
+     "gather, step, power_spectrum")])
+def test_module_refused_before_set_up(source, refusal, tmp_path, no_set_up):
+    """A configuration whose module is missing, or lacks a callable of the
+    contract, stops the run before the program's set-up."""
+    here, bench, _ = _copy(tmp_path)
+    conf = _newton_config(here, theory="mond",
+                          linear_newton_solver="multigrid")
+    conf["reference"] = "qumond"
+    if source is not None:
+        (here / "reference" / "qumond.py").write_text(source)
+    _add_cell(tmp_path, here, bench, conf, "refused")
+    with pytest.raises(SystemExit, match=re.escape(
+            f"configuration 'refused': {refusal}")):
+        cell.run_cell("tiny.refused", SEED, 1.0, False, "cpu",
+                      overrides=TINY, here=here)
 
 
 KEYS = {"": {"command", "paths", "run_seconds", "configs", "workloads",
