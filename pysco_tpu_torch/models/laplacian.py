@@ -19,6 +19,8 @@ sweeps (:func:`gauss_seidel`, ``cubic.gauss_seidel``,
 
 from __future__ import annotations
 
+from contextlib import nullcontext
+
 import numpy as np
 import torch
 
@@ -148,17 +150,22 @@ def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
     cubic, one kernel on the card), d1 = 27 h^2 q [- 27 rhs]; with
     n_power = 3 the float64 closed form ``exact_solve(p, coef)`` takes the
     root in plain torch, coef = h^2 q [- rhs] in float64. The relaxation
-    factor is :data:`F_RELAX`."""
+    factor is :data:`F_RELAX`.
+
+    Under a profiler an exact-root call opens the span ``mg.exact_root``
+    around its colour updates (pack and unpack stay outside it) and, on
+    the card, adds its 2 ``n_smoothing`` colour updates to the counter
+    ``exact_root_sweeps``."""
     n = x.shape[1]
     h2 = 1.0 / (n * n)
     red, black = pack_rb(x)
     hb_r, hb_b = pack_rb(_f32(h2) * b)
     rhs_r, rhs_b = (None, None) if rhs is None else pack_rb(rhs)
+    if exact_root and x.is_cuda:  # the colour updates, for a profiled step
+        profiling.count("exact_root_sweeps", 2 * n_smoothing)
     if exact_root and n_power == 2:
         d1_q = 27.0 * h2 * float(q)
         coef_r, coef_b = rhs_r, rhs_b  # the kernel folds rhs into d1
-        if x.is_cuda:  # the kernel's launches, for a profiled step
-            profiling.count("exact_root_sweeps", 2 * n_smoothing)
 
         def half(src, dst, hb, r, to_red):
             return stencil.scalaron_exact_half_sweep(src, dst, hb, d1_q,
@@ -182,9 +189,10 @@ def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
             return stencil.scalaron_half_sweep(src, dst, hb, coef, to_red,
                                                F_RELAX, n_power)
 
-    for _ in range(n_smoothing):
-        red = half(black, red, hb_r, coef_r, True)
-        black = half(red, black, hb_b, coef_b, False)
+    with profiling.span("mg.exact_root") if exact_root else nullcontext():
+        for _ in range(n_smoothing):
+            red = half(black, red, hb_r, coef_r, True)
+            black = half(red, black, hb_b, coef_b, False)
     return unpack_rb(red, black)
 
 

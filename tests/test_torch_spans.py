@@ -348,3 +348,31 @@ def test_profile_dir_trace_holds_the_span_track(tmp_path, monkeypatch):
     for e in ops:
         assert span["ts"] <= e["ts"] <= e["ts"] + e["dur"] <= (
             span["ts"] + span["dur"])
+
+
+@pytest.mark.parametrize("fR_n, roots", [(1, "exact"), (2, "exact"),
+                                         (2, "newton")])
+def test_exact_roots_open_a_span_in_each_smoothing(fR_n, roots):
+    """With exact roots every FAS smoothing call opens one
+    ``mg.exact_root`` inside its ``mg.smooth`` (the Poisson solve's
+    none); the Newton roots open none. Off the card nothing is counted
+    under ``exact_root_sweeps``."""
+    param = _param(theory="fr", linear_newton_solver="multigrid", aexp=0.05,
+                   fR_n=fR_n, fR_root_solver=roots)
+    cfg, dyn, state = _start(param)
+    multigrid.reset_stats()
+    with _profiler():
+        _step(cfg, dyn, state, "lazy_window")
+    stats = dict(multigrid.STATS)
+    totals = profiling.span_totals()
+    calls = totals["spans"].get("mg.exact_root", {"calls": 0})["calls"]
+    assert calls == (5 * stats["fas_cycles"] if roots == "exact" else 0)
+    assert stats["fas_cycles"] > 0
+    recs = profiling.span_records()
+    smooth = {r["index"]: r for r in recs if r["name"] == "mg.smooth"}
+    for r in recs:
+        if r["name"] == "mg.exact_root":
+            parent = smooth[r["parent"]]
+            assert parent["t0_ns"] <= r["t0_ns"] <= r["t1_ns"] <= parent[
+                "t1_ns"]
+    assert "exact_root_sweeps" not in totals["counters"]
