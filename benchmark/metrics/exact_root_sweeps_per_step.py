@@ -1,7 +1,7 @@
-"""exact_root_sweeps_per_step: exact-root colour updates on the card a
-traced step, on every level (the program's counter exact_root_sweeps, 2
-a red-black sweep; 0 off the card). None where the program opens no span
-mg.exact_root: a program without it counts n = 2's updates nowhere."""
+"""exact_root_sweeps_per_step: exact-root colour updates a traced step,
+on every level (the program's counter exact_root_sweeps, 2 a red-black
+sweep). None where the program opens no span mg.exact_root: a program
+without it counts n = 2's updates nowhere."""
 
 import program_spans
 

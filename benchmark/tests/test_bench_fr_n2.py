@@ -59,13 +59,16 @@ def test_traced_cell_reports_the_exact_root_metrics(workload):
     assert res["correct"] is True
     m = res["metrics"]
     steps = res["run"]["traced_steps"]
-    spans = profiling.span_totals(last_steps=steps)["spans"]
+    totals = profiling.span_totals(last_steps=steps)
+    spans = totals["spans"]
     assert m["exact_root_ms_per_step"]["value"] == pytest.approx(
         spans["mg.exact_root"]["device_ms"] / steps)
-    # inside the smoothing, and counted on the card only
+    # inside the smoothing; at least one sweep (2 colour updates) a call
     assert 0 < spans["mg.exact_root"]["device_ms"] <= spans["mg.smooth"][
         "device_ms"]
-    assert m["exact_root_sweeps_per_step"]["value"] == 0
+    sweeps = totals["counters"]["exact_root_sweeps"]
+    assert m["exact_root_sweeps_per_step"]["value"] == sweeps / steps
+    assert sweeps % 2 == 0 and sweeps >= 2 * spans["mg.exact_root"]["calls"]
     # no kernel of the card ran: the rooflines report nothing
     assert not set(TSC) & set(m)
 

@@ -153,15 +153,15 @@ def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
     factor is :data:`F_RELAX`.
 
     Under a profiler an exact-root call opens the span ``mg.exact_root``
-    around its colour updates (pack and unpack stay outside it) and, on
-    the card, adds its 2 ``n_smoothing`` colour updates to the counter
+    around its colour updates (pack and unpack stay outside it) and adds
+    its 2 ``n_smoothing`` colour updates to the counter
     ``exact_root_sweeps``."""
     n = x.shape[1]
     h2 = 1.0 / (n * n)
     red, black = pack_rb(x)
     hb_r, hb_b = pack_rb(_f32(h2) * b)
     rhs_r, rhs_b = (None, None) if rhs is None else pack_rb(rhs)
-    if exact_root and x.is_cuda:  # the colour updates, for a profiled step
+    if exact_root:  # the colour updates, for a profiled step
         profiling.count("exact_root_sweeps", 2 * n_smoothing)
     if exact_root and n_power == 2:
         d1_q = 27.0 * h2 * float(q)

@@ -87,7 +87,8 @@ def test_exact_twin_on_every_branch(with_rhs):
 
 def test_exact_smoothing_launches_and_counts_nothing_on_the_cpu():
     """cubic.smoothing with exact roots on the CPU runs the twin: no
-    launch, and no ``exact_root_sweeps`` count in a profiled step."""
+    launch; a profiled step counts its colour updates under
+    ``exact_root_sweeps`` as on the card, 2 a sweep."""
     n = 8
     rng = np.random.default_rng(3)
     x = torch.as_tensor((0.2 + 0.01 * rng.random((n, n, n))).astype(
@@ -103,7 +104,7 @@ def test_exact_smoothing_launches_and_counts_nothing_on_the_cpu():
                                 exact_root=True)
         (root,) = [r for r in profiling.span_records()
                    if r["name"] == "step"]
-        assert "exact_root_sweeps" not in root["counters"]
+        assert root["counters"]["exact_root_sweeps"] == 2 * (2 + 2)
     finally:
         profiling.reset_spans()
     assert stencil.LAUNCHES["scalaron_exact_half_sweep"] == 0

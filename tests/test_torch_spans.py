@@ -352,15 +352,29 @@ def test_profile_dir_trace_holds_the_span_track(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("fR_n, roots", [(1, "exact"), (2, "exact"),
                                          (2, "newton")])
-def test_exact_roots_open_a_span_in_each_smoothing(fR_n, roots):
+def test_exact_roots_open_a_span_in_each_smoothing(fR_n, roots,
+                                                  monkeypatch):
     """With exact roots every FAS smoothing call opens one
     ``mg.exact_root`` inside its ``mg.smooth`` (the Poisson solve's
-    none); the Newton roots open none. Off the card nothing is counted
-    under ``exact_root_sweeps``."""
+    none) and counts its 2 ``n_smoothing`` colour updates under
+    ``exact_root_sweeps``; the Newton roots open and count none."""
+    from pysco_tpu_torch.models import cubic, laplacian, quartic
+
+    sweeps = []
+
+    def tallied(x, b, q, n_smoothing, rhs, exact_root=False, *a, **kw):
+        if exact_root:
+            sweeps.append(n_smoothing)
+        return laplacian.packed_scalaron_smoothing(
+            x, b, q, n_smoothing, rhs, exact_root, *a, **kw)
+
+    for mod in (cubic, quartic):
+        monkeypatch.setattr(mod, "packed_scalaron_smoothing", tallied)
     param = _param(theory="fr", linear_newton_solver="multigrid", aexp=0.05,
                    fR_n=fR_n, fR_root_solver=roots)
     cfg, dyn, state = _start(param)
     multigrid.reset_stats()
+    sweeps.clear()  # the profiled step's calls alone
     with _profiler():
         _step(cfg, dyn, state, "lazy_window")
     stats = dict(multigrid.STATS)
@@ -375,4 +389,8 @@ def test_exact_roots_open_a_span_in_each_smoothing(fR_n, roots):
             parent = smooth[r["parent"]]
             assert parent["t0_ns"] <= r["t0_ns"] <= r["t1_ns"] <= parent[
                 "t1_ns"]
-    assert "exact_root_sweeps" not in totals["counters"]
+    assert len(sweeps) == calls
+    if roots == "exact":
+        assert totals["counters"]["exact_root_sweeps"] == 2 * sum(sweeps) > 0
+    else:
+        assert "exact_root_sweeps" not in totals["counters"]

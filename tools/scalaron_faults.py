@@ -1,0 +1,142 @@
+#!/usr/bin/env python3
+"""Scalaron faults planted in the checked step of an f(R) cell.
+
+    python3 tools/scalaron_faults.py --workload fr2tsc512.lazy --seed 7 \\
+        [--z 10,1,0] [--device cpu --tiny]
+
+Sets the cell up as ``benchmark/cell.py`` does, runs on to each output of
+``--z`` and keeps the state before the step that reaches it. That step is
+then run again with one fault planted in the program at a time, and
+clean last, and each run is judged by the cell's check against its
+limits. One JSON line a run (``FAULT``):
+
+- ``n1_root``: the FAS of n = 2's quartic run with the cubic's operator
+  and roots (n = 1's);
+- ``half_c2_x2``: the fifth-force factor c^2 in place of c^2 / 2;
+- ``fbar_exponent_n``: f_R(a) with the exponent n in place of n + 1 (f1,
+  f2, q and c^2 / 2 all move; at a = 1 it changes nothing);
+- ``u_unchanged``: the scalaron solve returns the u it starts from, the
+  previous step's.
+
+``--tiny`` runs 16^3 particles in a 64 Mpc/h box, for the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path[:0] = [str(ROOT / "benchmark"), str(ROOT)]
+
+
+def _faults():
+    import numpy as np
+
+    from pysco_tpu_torch import solver
+    from pysco_tpu_torch.models import multigrid
+
+    dyn = solver.compute_dynamics
+
+    def half_c2_x2(p):
+        d = dyn(p)
+        return d._replace(fR_half_c2=float(np.float32(2 * d.fR_half_c2)))
+
+    def exponent_n(p):
+        return dyn({**p, "fR_n": int(p["fR_n"]) - 1})
+
+    return {
+        "n1_root": (multigrid, "fas_ops_quartic",
+                    lambda q, exact_root=False: multigrid.fas_ops_cubic(
+                        q, exact_root)),
+        "half_c2_x2": (solver, "compute_dynamics", half_c2_x2),
+        "fbar_exponent_n": (solver, "compute_dynamics", exponent_n),
+        "u_unchanged": (solver, "_scalaron",
+                        lambda cfg, density, u, dyn_, first_call: u),
+        "clean": None,
+    }
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--workload", default="fr2tsc512.lazy")
+    ap.add_argument("--seed", type=int, required=True)
+    ap.add_argument("--z", default="10,1,0")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tiny", action="store_true")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    import cell
+    import check
+
+    here = cell.HERE
+    w = cell.find_workload(cell.spec(), args.workload)
+    config = cell.load_json(here / "configs" / f"{w['config']}.json")
+    traffic = cell.load_json(here / "traffic" / f"{w['traffic']}.json")
+    limits = cell.load_json(here / "limits" / f"{args.workload}.json")
+    tiny = ({"ncoarse": 4, "npart": 16 ** 3, "boxlen": 64.0} if args.tiny
+            else {})
+    dev = torch.device(args.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = os.path.join(tempfile.gettempdir(), "pysco_faults", args.workload)
+    os.makedirs(base, exist_ok=True)
+    param = cell._param(config, args.seed, base,
+                        {**traffic["param"], **tiny}, here)
+    param["z_out"] = list(param["z_out"])
+    ref = check.reference_for(w["config"], config, param, here)
+    sim, held, _ = cell._set_up(param, traffic, args.seed, dev, base)
+    faults = _faults()
+
+    def checked(name, z):
+        sim.restore()
+        saved = sim.saved[0]
+        fault = faults[name]
+        if fault is not None:
+            mod, attr, fn = fault
+            old = getattr(mod, attr)
+            setattr(mod, attr, fn)
+        try:
+            info = sim.step()
+        finally:
+            if fault is not None:
+                setattr(mod, attr, old)
+        held.step_in = (saved[0], saved[1], saved[2], saved[4])
+        held.step.update(dt=info["dt"], aexp=info["aexp"])
+        held.step_out = (sim.position, sim.velocity, sim.acceleration)
+        held.pk = info["pk"]
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        nums = check.reference_numbers(param, args.seed, held, dev,
+                                       check.program_outputs(held), ref)
+        correct, rows = check.judge(nums, limits)
+        held.step_in = held.step_out = held.pk = None
+        print("FAULT", json.dumps({
+            "z": z, "fault": name, "correct": correct,
+            "fails": [k for k, v, lim in rows if not v <= lim],
+            **{k: nums[k] for k in ("step_drho", "step_dmom", "step_dacc",
+                                    "pk")}}), flush=True)
+
+    for z in (float(s) for s in args.z.split(",")):
+        steps = 0
+        while True:  # keep the state before each step; stop on the output
+            sim.save()
+            info = sim.step()
+            steps += 1
+            if info["output"] and abs(info["aexp"] - 1 / (1 + z)) < 1e-9:
+                break
+            if sim.finished:
+                raise SystemExit(f"no output at z = {z} after the last")
+        print("REACHED", json.dumps({"z": z, "steps": steps}), flush=True)
+        for name in faults:  # clean last: the run goes on from its state
+            checked(name, z)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
