@@ -175,10 +175,12 @@ POISSON_KERNELS = tuple(k for k in SINGLE_KERNELS
 RESIDUAL_KINDS = (("linear", None), ("laplacian", None),
                   ("reformulated", None), ("cubic", -0.27),
                   ("quartic", -0.27))
-# kernels that replace no TPU kernel: the f(R) n = 1 sweep with the
-# float64 closed-form root (the JAX package takes those roots in jnp)
+# kernels that replace no TPU kernel: the f(R) n = 1 and n = 2 sweeps with
+# the float64 closed-form roots (the JAX package takes those roots in jnp)
 EXTRA_KERNELS = {
     "scalaron_exact_half_sweep": "pysco_tpu_torch/csrc/scalaron_sweep.cu",
+    "scalaron_quartic_exact_half_sweep":
+        "pysco_tpu_torch/csrc/scalaron_sweep.cu",
 }
 # the H100 SXM's published peaks: HBM bytes/s
 # and float32 operations/s outside the tensor cores
@@ -218,6 +220,41 @@ extern "C" __global__ void f64_trig(const double* p, const double* d1,
 }
 extern "C" __global__ void f64_zero(const double* d1, double* out) {
   out[threadIdx.x] = zero_root(d1[threadIdx.x]);
+}
+"""
+# the same for the quartic sweep (f(R) n = 2): the head and its sqrt_term
+# test, without and with the rhs plane; Q + d0/Q and its test; the tail for
+# each sign of p; the fallback |c|^(1/4). A cell does the head and then the
+# fallback (sqrt_term < 0), or Q + d0/Q and then the fallback or a tail; p
+# == 0 takes the fallback alone
+F64_QUARTIC_COUNT_SRC = r"""
+#include "scalaron_sweep.cu"
+extern "C" __global__ void f64_head(const double* p, const double* c,
+                                    int* out) {
+  const int i = threadIdx.x;
+  out[i] = quartic_head(p[i], c[i]).sqrt_term < 0.0;
+}
+extern "C" __global__ void f64_head_rhs(const double* p, const float* r,
+                                        double c_q, int* out) {
+  const int i = threadIdx.x;
+  const double c = c_q - static_cast<double>(r[i]);
+  out[i] = quartic_head(p[i], c).sqrt_term < 0.0;
+}
+extern "C" __global__ void f64_resolvent(const double* d0, const double* d1,
+                                         const double* st, int* out) {
+  const int i = threadIdx.x;
+  out[i] = quartic_q_d0oq(QuarticHead{d0[i], d1[i], st[i]}) > 0.0;
+}
+extern "C" __global__ void f64_tail_pos(const double* p, const double* q,
+                                        double* out) {
+  out[threadIdx.x] = quartic_tail<true>(p[threadIdx.x], q[threadIdx.x]);
+}
+extern "C" __global__ void f64_tail_neg(const double* p, const double* q,
+                                        double* out) {
+  out[threadIdx.x] = quartic_tail<false>(p[threadIdx.x], q[threadIdx.x]);
+}
+extern "C" __global__ void f64_fallback(const double* c, double* out) {
+  out[threadIdx.x] = quartic_fallback(c[threadIdx.x]);
 }
 """
 
@@ -931,13 +968,15 @@ def phase_scalaron_kernel(torch, np, lap, st, n, gen):
     return worst
 
 
-def _exact_f64_counts():
+def _exact_f64_counts(source=F64_COUNT_SRC,
+                      parts=("d", "d_rhs", "cardano", "trig", "zero")):
     """The float64 instructions (:data:`F64_OPS`) in the SASS of each part
-    of the exact-root sweep's work, compiled as the library is
-    (:data:`F64_COUNT_SRC`; cuobjdump -sass): {"d", "d_rhs", "cardano",
-    "trig", "zero"}. A static count: each instruction of a part's code
-    once, the special-value paths inside libdevice's pow, acos and cos
-    among them."""
+    of an exact-root sweep's work, compiled as the library is (``source``,
+    by default the n = 1 sweep's :data:`F64_COUNT_SRC`; cuobjdump -sass):
+    {part: count} for the ``parts`` its kernels ``f64_<part>`` hold. A
+    static count: each instruction of a part's code once, the
+    special-value paths inside libdevice's pow, acos and cos among
+    them."""
     import re
 
     from pysco_tpu_torch.ops import cuda_build
@@ -948,7 +987,7 @@ def _exact_f64_counts():
         src = os.path.join(tmp, "count.cu")
         cubin = os.path.join(tmp, "count.cubin")
         with open(src, "w") as f:
-            f.write(F64_COUNT_SRC)
+            f.write(source)
         cmd = [nvcc, *cuda_build.FLAGS, "-I", str(cuda_build.CSRC),
                "-cubin", "-o", cubin, src]
         r = subprocess.run(cmd, capture_output=True, text=True)
@@ -971,7 +1010,7 @@ def _exact_f64_counts():
                      line)
         if name is not None and m and m.group(1) in F64_OPS:
             counts[name] += 1
-    check(set(counts) == {"d", "d_rhs", "cardano", "trig", "zero"},
+    check(set(counts) == set(parts),
           f"count kernels: functions {sorted(counts)}")
     return counts
 
@@ -1069,6 +1108,142 @@ def phase_exact_root_kernel(torch, np, st):
             out = (t_k, t_p, (max(b16, f64["scalar"]),
                               "bytes" if b16 >= f64["scalar"] else "float64"))
         del src, dst, hb, rhs, smooth
+        torch.cuda.empty_cache()
+    return (*out, worst)
+
+
+def _quartic_f64_per_cell(torch, st, counts, src, hb, c, to_red=True):
+    """Float64 instructions a cell of one quartic exact-root sweep on this
+    state (c a float, or a float64 plane: the rhs form), from the branch
+    each cell takes, and the shares of the cells on each branch."""
+    from exact_root_states import quartic_branches
+
+    p = hb - st._INVSIX * st.packed_neighbour_sum(src * src * src, to_red)
+    br = {k: float(v.double().mean())
+          for k, v in quartic_branches(p, c).items()}
+    head = counts["head" if isinstance(c, float) else "head_rhs"]
+    fb = counts["fallback"]
+    per = (br["p_zero"] * fb + br["sqrt_term_neg"] * (head + fb)
+           + br["qdq_not_pos"] * (head + counts["resolvent"] + fb)
+           + br["p_pos"] * (head + counts["resolvent"] + counts["tail_pos"])
+           + br["p_neg"] * (head + counts["resolvent"]
+                            + counts["tail_neg"]))
+    return per, br
+
+
+def _quartic_converged(torch, np, lap, n, c_q=-0.5):
+    """A packed quartic state its sweep leaves where it is: u* = 1 +
+    0.05 noise and b such that u* solves u^4 + p u + c_q = 0, p = h^2 b -
+    sum_nb(u*^3)/6 (in float64, cast to float32), as tests/test_torch_fr.py
+    builds it. Returns ((red, black), (h^2 b red, black), c_q): a red
+    update reads black as its src."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(n)
+    u = 1.0 + 0.05 * torch.randn((n, n, n), generator=gen, device="cuda",
+                                 dtype=torch.float64)
+    u = u.float().double()
+    u3 = u * u * u
+    S = sum(torch.roll(u3, sh, a) for a in range(3) for sh in (1, -1))
+    h2 = float(np.float32(1.0 / (n * n)))
+    b = ((S / 6.0) * u - u ** 4 - c_q) / (h2 * u)
+    hb = lap.pack_rb((h2 * b).float())
+    del S, b
+    return lap.pack_rb(u.float()), hb, c_q
+
+
+def phase_quartic_exact_kernel(torch, np, st):
+    """The f(R) n = 2 sweep with the float64 closed-form quartic root
+    against its twin at n = 4, 8, 64, 256 and 512 on
+    tests/exact_root_states.py's quartic states (every branch of the
+    closed form), with a scalar c and the rhs plane, both colours: bitwise
+    but where libdevice's pow built with --fmad=false rounds a float64 ulp
+    away from torch's (``quartic_off_cells``: within one float32 ulp, or
+    bitwise the twin with its cube root one ulp away), those cells counted
+    and logged; its times at 256^3 and
+    512^3 on a converged state (p < 0 on every cell), on the mixed-branch
+    state (every branch in every warp) and with the rhs plane, beside its
+    byte and float64 bounds (the float64 work of the branch each cell
+    takes) and the twin's time. Returns (ms, twin ms, bound, largest
+    |kernel - twin|), times at 256^3 on the converged state without the
+    plane, for the record."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    from exact_root_states import quartic_off_cells, quartic_states
+    from pysco_tpu_torch.models import laplacian as lap
+
+    name_k = "scalaron_quartic_exact_half_sweep"
+    worst = 0.0
+    for n in (4, 8, 64, 256, 512):
+        off = far = cells = 0
+        for name, ((src, dst, hb, rhs), c_q) in quartic_states(
+                n, "cuda").items():
+            for r in (None, rhs):
+                for to_red in (True, False):
+                    got = st.scalaron_quartic_exact_half_sweep(
+                        src, dst, hb, c_q, to_red, 1.25, r)
+                    want = st.scalaron_quartic_exact_half_sweep_plain(
+                        src, dst, hb, c_q, to_red, 1.25, r)
+                    check(bool(torch.isfinite(got).all()),
+                          f"{name_k}: n={n} {name}: not finite")
+                    k = quartic_off_cells(got, src, dst, hb, c_q, to_red, r)
+                    tag = f"n={n} {name} rhs={r is not None} red={to_red}"
+                    check(k["explained"] == k["off"],
+                          f"{name_k} vs twin: {k} ({tag})")
+                    off += k["off"]
+                    far += k["far"]
+                    cells += got.numel()
+                    worst = max(worst, float((got - want).abs().max()))
+        log(f"[3 quartic] n={n} {name_k}: bitwise its twin on the branch, "
+            f"positive and scalaron-like states, scalar and plane c, both "
+            f"colours, but {off} of {cells} cells, each within one float32 "
+            f"ulp or ({far} cells) the twin with its cube root one float64 "
+            f"ulp away; largest |kernel - twin| so far {worst:.3e}")
+    counts = _exact_f64_counts(
+        F64_QUARTIC_COUNT_SRC,
+        ("head", "head_rhs", "resolvent", "tail_pos", "tail_neg",
+         "fallback"))
+    log(f"[3 quartic] float64 instructions ({', '.join(F64_OPS)}) in the "
+        f"SASS: head {counts['head']} ({counts['head_rhs']} with the rhs "
+        f"plane), Q + d0/Q {counts['resolvent']}, tail p > 0 "
+        f"{counts['tail_pos']}, p < 0 {counts['tail_neg']}, fallback "
+        f"{counts['fallback']}")
+    out = None
+    for n in (256, 512):
+        (dst, src), (hb, _), c_q = _quartic_converged(torch, np, lap, n)
+        (msrc, mdst, mhb, mrhs), mc_q = quartic_states(n, "cuda")["branch"]
+        rhs = 1e-4 * mrhs
+        t_k = time_ms(torch, lambda: st.scalaron_quartic_exact_half_sweep(
+            src, dst, hb, c_q, True, 1.25))
+        t_r = time_ms(torch, lambda: st.scalaron_quartic_exact_half_sweep(
+            src, dst, hb, c_q, True, 1.25, rhs))
+        t_m = time_ms(torch, lambda: st.scalaron_quartic_exact_half_sweep(
+            msrc, mdst, mhb, mc_q, True, 1.25))
+        plain = st.scalaron_quartic_exact_half_sweep_plain
+        t_p = time_ms(torch, lambda: plain(src, dst, hb, c_q, True, 1.25), 3)
+        moved = st.scalaron_quartic_exact_half_sweep(src, dst, hb, c_q, True,
+                                                     1.25)
+        dev = float((moved - dst).abs().max())
+        cells = hb.numel()
+        f64 = {}
+        for tag, (s_, h_, c_) in (
+                ("converged", (src, hb, c_q)),
+                ("rhs", (src, hb, c_q - rhs.double())),
+                ("mixed", (msrc, mhb, mc_q))):
+            per, br = _quartic_f64_per_cell(torch, st, counts, s_, h_, c_)
+            f64[tag] = per * cells / F64_INSTR_PER_S * 1e3
+            log(f"[3 quartic] {n}^3 {tag}: {per:.1f} float64 instructions "
+                f"a cell (" + ", ".join(f"{k} {v:.3f}" for k, v in br.items())
+                + ")")
+        b16 = 16 * cells / HBM_BYTES_PER_S * 1e3
+        b20 = 20 * cells / HBM_BYTES_PER_S * 1e3
+        log(f"[3 quartic times] {n}^3 {name_k}: converged {t_k:.3f} ms "
+            f"(largest move {dev:.2e}), rhs plane {t_r:.3f}, mixed branches "
+            f"{t_m:.3f}; twin {t_p:.3f}; bounds: bytes {b16:.4f} ms "
+            f"({b20:.4f} with the plane), float64 {f64['converged']:.4f} ms "
+            f"({f64['rhs']:.4f} with the plane, {f64['mixed']:.4f} mixed)")
+        if out is None:
+            b = max(b16, f64["converged"])
+            out = (t_k, t_p, (b, "bytes" if b16 >= b else "float64"))
+        del src, dst, hb, msrc, mdst, mhb, mrhs, rhs, moved
         torch.cuda.empty_cache()
     return (*out, worst)
 
@@ -1362,10 +1537,13 @@ def phase_stencil_kernels(torch, np):
     meta = {k: {"bound": v, "library_ms": None} for k, v in meta.items()}
     meta["add_prolongation"]["library_ms"] = _prolongation_times(
         torch, st, x, xc, meta["add_prolongation"]["bound"], times, gen)
-    name = "scalaron_exact_half_sweep"
-    times[name], times[f"{name}_plain"], bnd, err[name] = (
-        phase_exact_root_kernel(torch, np, st))
-    meta[name] = {"bound": bnd, "library_ms": None}
+    for name, phase in (("scalaron_exact_half_sweep",
+                         phase_exact_root_kernel),
+                        ("scalaron_quartic_exact_half_sweep",
+                         phase_quartic_exact_kernel)):
+        times[name], times[f"{name}_plain"], bnd, err[name] = phase(
+            torch, np, st)
+        meta[name] = {"bound": bnd, "library_ms": None}
     return err, times, meta
 
 
@@ -1893,6 +2071,10 @@ def phase_fr_exact(torch, np, tmp, over):
 
 
 def phase_fr_n2(torch, np, tmp):
+    """A 256^3 f(R) n = 2 run with the Newton roots, then the same with
+    the exact roots (``fR_root_solver = exact``): every step of the second
+    launches the quartic exact-root sweep, and no Newton-root sweep.
+    Returns the exact run's launches of the quartic sweep."""
     n = 256
     over = dict(FR_OVERRIDES, fR_n=2, boxlen=500.0, ncoarse=8,
                 npart=n ** 3, z_out="[30]", mass_scheme="TSC")
@@ -1905,6 +2087,25 @@ def phase_fr_n2(torch, np, tmp):
         f"{len(recs) - 1} steps; V-cycles per FAS solve {fas:.2f}, per "
         f"Poisson solve {lin:.2f}; mean(u) {recs[-1].mean_additional:.7f}")
     _check_outputs(torch, np, base, n, "tsc", "11 fr n2")
+    shutil.rmtree(base, ignore_errors=True)
+    name = "scalaron_quartic_exact_half_sweep"
+    recs, launches, stats, base = _drive(
+        torch, tmp, "11 fr n2 exact", dict(over, fR_root_solver="exact"),
+        POISSON_KERNELS + (name,))
+    check(len(recs) >= 3, f"only {len(recs)} exact-root f(R) n = 2 steps")
+    check(launches["scalaron_half_sweep"] == 0,
+          "the exact-root n = 2 run launched the Newton-root sweep")
+    fas, lin = _per_solve(stats)
+    per_step = (recs[-1].launches[name] - recs[0].launches[name]) / (
+        len(recs) - 1)
+    log(f"[11 fr n2 exact] median step "
+        f"{np.median([1e3 * r.seconds for r in recs[1:]]):.1f} ms over "
+        f"{len(recs) - 1} steps; V-cycles per FAS solve {fas:.2f}, per "
+        f"Poisson solve {lin:.2f}; {name} {launches[name]} launches, "
+        f"{per_step:.1f} a step; mean(u) {recs[-1].mean_additional:.7f}")
+    _check_outputs(torch, np, base, n, "tsc", "11 fr n2 exact")
+    shutil.rmtree(base, ignore_errors=True)
+    return launches[name]
 
 
 def _capture_run(torch, tmp, tag, overrides, names, devices=None):
@@ -2669,7 +2870,8 @@ def main() -> int:
                                ("fr_n2", {"theory": "fr", "fR_n": 2})),
                      "9 fr e2e")
         launches, fr_ref = phase_fr_main_path(torch, np, tmp)
-        phase_fr_n2(torch, np, tmp)
+        launches["scalaron_quartic_exact_half_sweep"] = phase_fr_n2(
+            torch, np, tmp)
         phase_extras(torch, np, tmp)
         phase_parallel(torch, np, tmp, main_base, main_stale, main_sorted)
         slab_launches = phase_slab_mg(torch, np, tmp, fr_ref)

@@ -1,7 +1,9 @@
 // One colour half of the packed red-black nonlinear sweep of the f(R)
-// scalaron, for Hopper, sm_90a, with two roots: a float32 Newton polish
-// (scalaron_sweep_kernel) and the float64 closed-form cubic
-// (scalaron_exact_sweep_kernel). Both share one blocking (sweep_march).
+// scalaron, for Hopper, sm_90a, with three roots: a float32 Newton polish
+// (scalaron_sweep_kernel), the float64 closed-form cubic of n = 1
+// (scalaron_exact_sweep_kernel) and the float64 closed-form quartic of
+// n = 2 (scalaron_quartic_exact_sweep_kernel). All three share one
+// blocking (sweep_march).
 //
 // The Newton form replaces pysco_tpu/ops/pallas_stencil.py::
 // scalaron_half_sweep, which streams blocks of x-planes of the (n, n/2, n)
@@ -40,6 +42,25 @@
 // the twin's on every state tried, and is held to one float32 ulp on the
 // cells where pow differs.
 //
+// The quartic form replaces no TPU kernel either: the JAX package takes
+// n = 2's roots in plain jnp (models/quartic.py solution_quartic_equation),
+// and so did the port, in some 35 float64 torch passes a colour update and
+// two float64 coefficient planes. It computes p (k = 3) in float32 as the
+// Newton form does, widens it, and takes the root of u^4 + p u + c = 0 in
+// float64, c = h^2 q (a double argument) or h^2 q - rhs (rhs read as
+// float32 and widened), on the branch the twin (ops/stencil.py
+// solution_quartic_equation) keeps: the resolvent-cubic root, or the
+// fallback |c|^(1/4) where p == 0, where the square root's argument is
+// negative, or where Q + d0/Q is not positive (NaN included), each
+// computed only on the cells that take it. It casts the root to float32
+// and relaxes as above. The twin divides by the Python float 3.0, which
+// torch's CUDA kernel takes as a product with the double reciprocal
+// 1.0 / 3.0: so does this form. Its libdevice pow (the cube root, and
+// the fallback's |c|^(1/4)) may round a float64 ulp away from torch's as
+// the cubic's pow(x, 1.5) does (see below); where Q + d0/Q cancels, that
+// ulp can move the cell to another branch or a distant root
+// (tests/exact_root_states.py quartic_off_cells says which cells may).
+//
 // What bounds them on the card. The Newton form: bytes. Per cell it must
 // read 4 B each of src, dst and hb (and the coef plane) and write 4 B: at
 // 256^3 a call moves 4 x 33.5 MB (5 x with the plane), >= 0.040 ms (0.050
@@ -57,7 +78,12 @@
 // three, and lets 3 blocks share an SM (at most 85 registers a thread:
 // ptxas takes 78-80 and spills nothing; 2 blocks ran 18% slower at 512^3,
 // 4 spill) with about 4096 blocks a launch, so that the float64 latencies
-// are hidden.
+// are hidden. The quartic form moves the same bytes; its main branch is a
+// pow, three sqrt and three divisions in float64. It takes the same design
+// with constants of its own, measured at 512^3 on an H100: 3 blocks an SM
+// (80 registers, no spill; 2 blocks ran 20% slower, 4 spill 40-64 bytes for
+// a 2-4% gain) and about 8192 blocks a launch (1% faster than 4096, 3%
+// than 1024).
 //
 // The design (2.5-D blocking): a block owns a tile of up to 8 packed rows
 // (jp) x 128 z cells and marches along x over a run of planes. Each thread
@@ -101,6 +127,9 @@ constexpr int kBlocksPerSM = 4;
 // the exact form: at most 85 registers a thread, for the float64 code
 constexpr int kExactBlocksPerSM = 3;
 constexpr int kExactTargetBlocks = 4096;
+// the quartic form: at most 85 registers a thread (ptxas takes 80)
+constexpr int kQuarticBlocksPerSM = 3;
+constexpr int kQuarticTargetBlocks = 8192;
 
 // the twin's Python constants: 1/3, 2 pi (math.pi doubled), both exact
 constexpr double kThird = 1.0 / 3.0;
@@ -175,6 +204,60 @@ __device__ __forceinline__ double cubic_root(double p, double d1) {
   if (d > 0.0) return cardano_root(p, d1, d);
   if (d < 0.0) return trig_root(p, d1);
   return zero_root(d1);
+}
+
+// |c|^(1/4), the quartic twin's fallback (torch.abs(q) ** 0.25)
+__device__ __forceinline__ double quartic_fallback(double c) {
+  return pow(fabs(c), 0.25);
+}
+
+// torch.clamp(v, min=0), which keeps a NaN
+__device__ __forceinline__ double clamp_min0(double v) {
+  return v != v ? v : fmax(v, 0.0);
+}
+
+// d0 = 12 c, d1 = 27 p^2 and the resolvent's square-root argument
+// sqrt_term = 1 - 4 d0 (d0 / d1)^2 (the twin's d1_safe is d1: p != 0 here)
+struct QuarticHead {
+  double d0, d1, sqrt_term;
+};
+
+__device__ __forceinline__ QuarticHead quartic_head(double p, double c) {
+  const double d0 = 12.0 * c;
+  const double d1 = 27.0 * p * p;
+  const double ratio = d0 / d1;
+  return {d0, d1, 1.0 - 4.0 * d0 * (ratio * ratio)};
+}
+
+// Q + d0/Q, Q the resolvent's real cube root (sqrt_term >= 0 or NaN here)
+__device__ __forceinline__ double quartic_q_d0oq(const QuarticHead& h) {
+  const double Q = signed_cbrt(0.5 * h.d1 * (1.0 + sqrt(h.sqrt_term)));
+  const double Q_safe = Q == 0.0 ? 1.0 : Q;
+  return Q_safe + h.d0 / Q_safe;
+}
+
+// The root from Q + d0/Q > 0, for p > 0 (PPos) or p < 0; the twin's
+// "/ 3.0" as torch's CUDA kernel computes it, a product with 1.0 / 3.0
+template <bool PPos>
+__device__ __forceinline__ double quartic_tail(double p, double q_d0oq) {
+  const double S = 0.5 * sqrt(q_d0oq * kThird);
+  const double S_safe = S == 0.0 ? 1.0 : S;
+  if (PPos) return -S + 0.5 * sqrt(clamp_min0(-4.0 * S * S + p / S_safe));
+  return S + 0.5 * sqrt(clamp_min0(-4.0 * S * S - p / S_safe));
+}
+
+// The real root of u^4 + p u + c = 0 on the branch the twin's nested
+// torch.where keeps (p == 0, then sqrt_term < 0, then Q + d0/Q not
+// positive, NaN included: the fallback; else the tail of p's sign), that
+// branch's work alone, in the twin's order of operations
+__device__ __forceinline__ double quartic_root(double p, double c) {
+  if (p == 0.0) return quartic_fallback(c);
+  const QuarticHead h = quartic_head(p, c);
+  if (h.sqrt_term < 0.0) return quartic_fallback(c);
+  const double q_d0oq = quartic_q_d0oq(h);
+  if (!(q_d0oq > 0.0)) return quartic_fallback(c);
+  return p > 0.0 ? quartic_tail<true>(p, q_d0oq)
+                 : quartic_tail<false>(p, q_d0oq);
 }
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -343,6 +426,25 @@ scalaron_exact_sweep_kernel(const float* __restrict__ src, const float* dst,
       });
 }
 
+// The exact form, f(R) n = 2 (k = 3): c = c_q [- rhs].
+template <bool RhsPlane>
+__global__ void __launch_bounds__(kThreads, kQuarticBlocksPerSM)
+scalaron_quartic_exact_sweep_kernel(const float* __restrict__ src,
+                                    const float* dst,
+                                    const float* __restrict__ hb,
+                                    const float* __restrict__ rhs,
+                                    double c_q, float* out, int n, int run,
+                                    int to_red, float f_relax) {
+  sweep_march<3, RhsPlane>(
+      src, dst, hb, rhs, out, n, run, to_red,
+      [&](float old, float p, float r) {
+        const double c = RhsPlane ? c_q - static_cast<double>(r) : c_q;
+        const float x =
+            static_cast<float>(quartic_root(static_cast<double>(p), c));
+        return old + f_relax * (x - old);
+      });
+}
+
 // The block and grid of a sweep over the (n, n/2, n) half-lattice, and the
 // run of planes a block marches over: about target blocks.
 struct Launch {
@@ -424,6 +526,28 @@ extern "C" int pysco_scalaron_exact_half_sweep(
   } else {
     scalaron_exact_sweep_kernel<false><<<l.grid, l.block, 0, st>>>(
         src, dst, hb, rhs, d1_q, out, n, l.run, to_red, f_relax);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same update of f(R) n = 2 with the float64 closed-form quartic root:
+// c = c_q (h^2 q) where rhs is null, else c_q - rhs. out may be dst. n must
+// be a multiple of 4 and every array 16-byte aligned. Returns the CUDA
+// error of the launch (0 on success), or cudaErrorInvalidValue for
+// another n.
+extern "C" int pysco_scalaron_quartic_exact_half_sweep(
+    const float* src, const float* dst, const float* hb, const float* rhs,
+    double c_q, float* out, int n, int to_red, float f_relax,
+    void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n < kVec || n % kVec) return static_cast<int>(cudaErrorInvalidValue);
+  const Launch l = launch_shape(n, kQuarticTargetBlocks);
+  if (rhs != nullptr) {
+    scalaron_quartic_exact_sweep_kernel<true><<<l.grid, l.block, 0, st>>>(
+        src, dst, hb, rhs, c_q, out, n, l.run, to_red, f_relax);
+  } else {
+    scalaron_quartic_exact_sweep_kernel<false><<<l.grid, l.block, 0, st>>>(
+        src, dst, hb, rhs, c_q, out, n, l.run, to_red, f_relax);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -136,8 +136,8 @@ def _smoothing_packed(x, b, n_smoothing: int, rhs=None,
 
 
 def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
-                              exact_root: bool, n_power: int,
-                              exact_solve=None) -> torch.Tensor:
+                              exact_root: bool,
+                              n_power: int) -> torch.Tensor:
     """Packed red-black sweeps of the f(R) scalaron equation
     u^(n_power+1) + p u + q h^2 [- rhs] = 0, one pack/unpack round trip
     (``cubic.smoothing`` with n_power = 2, ``quartic.smoothing`` with 3).
@@ -145,11 +145,11 @@ def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
     Each colour update reads only the opposite half-lattice's n_power-th
     power. With the Newton root it is :func:`stencil.scalaron_half_sweep`
     (the CUDA kernel on the card), c0 = h^2 q [- rhs] in float32. With
-    ``exact_root`` and n_power = 2 it is
-    :func:`stencil.scalaron_exact_half_sweep` (the float64 closed-form
-    cubic, one kernel on the card), d1 = 27 h^2 q [- 27 rhs]; with
-    n_power = 3 the float64 closed form ``exact_solve(p, coef)`` takes the
-    root in plain torch, coef = h^2 q [- rhs] in float64. The relaxation
+    ``exact_root`` it is one launch of a float64 closed-form kernel on the
+    card: for n_power = 2 :func:`stencil.scalaron_exact_half_sweep` (the
+    cubic), d1 = 27 h^2 q [- 27 rhs]; for n_power = 3
+    :func:`stencil.scalaron_quartic_exact_half_sweep` (the quartic), c =
+    h^2 q [- rhs]; both fold the rhs plane in themselves. The relaxation
     factor is :data:`F_RELAX`.
 
     Under a profiler an exact-root call opens the span ``mg.exact_root``
@@ -161,25 +161,19 @@ def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
     red, black = pack_rb(x)
     hb_r, hb_b = pack_rb(_f32(h2) * b)
     rhs_r, rhs_b = (None, None) if rhs is None else pack_rb(rhs)
-    if exact_root:  # the colour updates, for a profiled step
+    if exact_root:
+        # the colour updates, for a profiled step
         profiling.count("exact_root_sweeps", 2 * n_smoothing)
-    if exact_root and n_power == 2:
-        d1_q = 27.0 * h2 * float(q)
-        coef_r, coef_b = rhs_r, rhs_b  # the kernel folds rhs into d1
+        if n_power == 2:
+            sweep = stencil.scalaron_exact_half_sweep
+            coef = 27.0 * h2 * float(q)
+        else:
+            sweep = stencil.scalaron_quartic_exact_half_sweep
+            coef = h2 * float(q)
+        coef_r, coef_b = rhs_r, rhs_b  # the kernels fold rhs in
 
         def half(src, dst, hb, r, to_red):
-            return stencil.scalaron_exact_half_sweep(src, dst, hb, d1_q,
-                                                     to_red, F_RELAX, r)
-    elif exact_root:
-        base = h2 * float(q)
-        coef_r, coef_b = ((base, base) if rhs is None else
-                          (base - rhs_r.double(), base - rhs_b.double()))
-
-        def half(src, dst, hb, coef, to_red):
-            p = hb - _INVSIX * packed_neighbour_sum(
-                stencil._power(src, n_power), to_red)
-            x_new = exact_solve(p, coef).to(torch.float32)
-            return dst + _f32(F_RELAX) * (x_new - dst)
+            return sweep(src, dst, hb, coef, to_red, F_RELAX, r)
     else:
         c0_q = _f32(np.float32(h2) * np.float32(q))
         coef_r, coef_b = ((c0_q, c0_q) if rhs is None else

@@ -5,7 +5,8 @@ For Hu-Sawicki n=2 the reduced scalaron obeys ``u^4 + p u + q = 0`` per
 cell (Ruan et al. 2021). By default three float32 Newton steps from the
 current grid value polish the root (the scalaron sweep kernel on the
 card); ``exact_root`` takes the float64 resolvent-cubic closed form with
-the reference's fallbacks to ``(-q)^(1/4)``.
+the reference's fallbacks to ``(-q)^(1/4)`` (one kernel a colour update on
+the card; the closed form lives in ``ops/stencil.py``, beside it).
 
 Conventions (h = 1/N):
 - operator(x, b, q)[ijk] = x^4 + p x + q h^2,
@@ -19,38 +20,11 @@ import numpy as np
 import torch
 
 from ..ops import stencil
-from .cubic import _cbrt, _f64
+from ..ops.stencil import _cbrt, _f64, solution_quartic_equation
 from .laplacian import F_RELAX, _parity, packed_scalaron_smoothing
 
 F32 = torch.float32
 F64 = torch.float64
-
-
-def solution_quartic_equation(p: torch.Tensor, q) -> torch.Tensor:
-    """Real positive root of u^4 + p u + q = 0 (float64, branchless)."""
-    pp = p.to(F64)
-    qq = _f64(q, pp)
-
-    fallback = torch.abs(qq) ** 0.25  # (-q)^(1/4) for q < 0
-
-    d0 = 12.0 * qq
-    d1_safe = torch.where(pp == 0.0, 1.0, 27.0 * pp * pp)
-    ratio = d0 / d1_safe
-    sqrt_term = 1.0 - 4.0 * d0 * (ratio * ratio)
-    sqrt_term_safe = torch.where(sqrt_term < 0.0, 0.0, sqrt_term)
-    Q = _cbrt(0.5 * d1_safe * (1.0 + torch.sqrt(sqrt_term_safe)))
-    Q_safe = torch.where(Q == 0.0, 1.0, Q)
-    Q_d0oQ = Q_safe + d0 / Q_safe
-    S = 0.5 * torch.sqrt(torch.where(Q_d0oQ > 0.0, Q_d0oQ, 1.0) / 3.0)
-    S_safe = torch.where(S == 0.0, 1.0, S)
-    disc_pos = -4.0 * S * S + pp / S_safe
-    disc_neg = -4.0 * S * S - pp / S_safe
-    root_p_pos = -S + 0.5 * torch.sqrt(torch.clamp(disc_pos, min=0.0))
-    root_p_neg = S + 0.5 * torch.sqrt(torch.clamp(disc_neg, min=0.0))
-    root = torch.where(pp > 0.0, root_p_pos, root_p_neg)
-    root = torch.where(Q_d0oQ > 0.0, root, fallback)
-    root = torch.where(sqrt_term < 0.0, fallback, root)
-    return torch.where(pp == 0.0, fallback, root)
 
 
 def initialise_potential(b: torch.Tensor, q) -> torch.Tensor:
@@ -133,6 +107,5 @@ def smoothing(x: torch.Tensor, b: torch.Tensor, q, n_smoothing: int,
               rhs=None, exact_root: bool = False) -> torch.Tensor:
     """n_smoothing red-black sweeps on packed half-lattices (see
     cubic.smoothing: cube-sum neighbours and the quartic root)."""
-    return packed_scalaron_smoothing(
-        x, b, q, n_smoothing, rhs, exact_root, n_power=3,
-        exact_solve=solution_quartic_equation)
+    return packed_scalaron_smoothing(x, b, q, n_smoothing, rhs, exact_root,
+                                     n_power=3)

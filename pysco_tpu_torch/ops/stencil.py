@@ -1,8 +1,8 @@
 """Multigrid stencil kernels: the red-black half-sweep (linear and f(R)
 scalaron, the latter with a float32 Newton root or the float64 closed-form
-cubic root), the residual norm, the fused restriction and the
+cubic or quartic root), the residual norm, the fused restriction and the
 prolongation (the PyTorch/CUDA counterpart of
-``pysco_tpu/ops/pallas_stencil.py``; the closed-form sweep has no Pallas
+``pysco_tpu/ops/pallas_stencil.py``; the closed-form sweeps have no Pallas
 kernel: the JAX package takes those roots in plain jnp).
 
 Each kernel is hand-written CUDA (``csrc/half_sweep.cu``,
@@ -37,7 +37,8 @@ F64 = torch.float64
 # kernel launches by the CUDA wrappers (one per wrapper call); the CPU
 # twins do not count
 LAUNCHES = {"half_sweep": 0, "scalaron_half_sweep": 0,
-            "scalaron_exact_half_sweep": 0, "residual_norm2": 0,
+            "scalaron_exact_half_sweep": 0,
+            "scalaron_quartic_exact_half_sweep": 0, "residual_norm2": 0,
             "restrict3": 0, "add_prolongation": 0}
 
 #: residual kind -> (kernel enum, neighbour power, needs b); the kinds of
@@ -154,6 +155,34 @@ def solution_cubic_equation(p: torch.Tensor, d1) -> torch.Tensor:
                        torch.where(d < 0.0, root_neg, root_zero))
 
 
+def solution_quartic_equation(p: torch.Tensor, q) -> torch.Tensor:
+    """Real positive root of u^4 + p u + q = 0 (float64, branchless; the
+    JAX package's ``quartic.solution_quartic_equation``)."""
+    pp = p.to(F64)
+    qq = _f64(q, pp)
+
+    fallback = torch.abs(qq) ** 0.25  # (-q)^(1/4) for q < 0
+
+    d0 = 12.0 * qq
+    d1_safe = torch.where(pp == 0.0, 1.0, 27.0 * pp * pp)
+    ratio = d0 / d1_safe
+    sqrt_term = 1.0 - 4.0 * d0 * (ratio * ratio)
+    sqrt_term_safe = torch.where(sqrt_term < 0.0, 0.0, sqrt_term)
+    Q = _cbrt(0.5 * d1_safe * (1.0 + torch.sqrt(sqrt_term_safe)))
+    Q_safe = torch.where(Q == 0.0, 1.0, Q)
+    Q_d0oQ = Q_safe + d0 / Q_safe
+    S = 0.5 * torch.sqrt(torch.where(Q_d0oQ > 0.0, Q_d0oQ, 1.0) / 3.0)
+    S_safe = torch.where(S == 0.0, 1.0, S)
+    disc_pos = -4.0 * S * S + pp / S_safe
+    disc_neg = -4.0 * S * S - pp / S_safe
+    root_p_pos = -S + 0.5 * torch.sqrt(torch.clamp(disc_pos, min=0.0))
+    root_p_neg = S + 0.5 * torch.sqrt(torch.clamp(disc_neg, min=0.0))
+    root = torch.where(pp > 0.0, root_p_pos, root_p_neg)
+    root = torch.where(Q_d0oQ > 0.0, root, fallback)
+    root = torch.where(sqrt_term < 0.0, fallback, root)
+    return torch.where(pp == 0.0, fallback, root)
+
+
 def residual_plain(kind: str, x, b=None, rhs=None, q=None) -> torch.Tensor:
     """The per-cell residual of ``kind`` (``pallas_stencil._residual_block``
     on the full lattice); with ``rhs`` it is rhs - op."""
@@ -228,6 +257,16 @@ def scalaron_exact_half_sweep_plain(src, dst, hb, d1_q: float,
     return dst + _f32(f_relax) * (x_new - dst)
 
 
+def scalaron_quartic_exact_half_sweep_plain(src, dst, hb, c_q: float,
+                                            to_red: bool, f_relax: float,
+                                            rhs=None) -> torch.Tensor:
+    """Twin of :func:`scalaron_quartic_exact_half_sweep`."""
+    coef = c_q if rhs is None else c_q - rhs.double()
+    p = hb - _INVSIX * packed_neighbour_sum(_power(src, 3), to_red)
+    x_new = solution_quartic_equation(p, coef).to(F32)
+    return dst + _f32(f_relax) * (x_new - dst)
+
+
 def residual_norm2_plain(kind: str, x, b=None, rhs=None,
                          q=None) -> torch.Tensor:
     """Twin of :func:`residual_norm2`."""
@@ -270,6 +309,8 @@ def _kernels():
     lib.pysco_scalaron_exact_half_sweep.argtypes = [P, P, P, P,
                                                     ctypes.c_double, P, I,
                                                     I, F, P]
+    lib.pysco_scalaron_quartic_exact_half_sweep.argtypes = [
+        P, P, P, P, ctypes.c_double, P, I, I, F, P]
     lib.pysco_norm2_blocks.argtypes = [I]
     lib.pysco_residual_norm2.argtypes = [I, P, P, P, I, F, F, F, P, P, P]
     lib.pysco_norm2_variant_blocks.argtypes = [I, I]
@@ -278,7 +319,9 @@ def _kernels():
     lib.pysco_restrict3.argtypes = [I, P, P, P, I, F, F, F, P, P, P, P]
     lib.pysco_add_prolongation.argtypes = [P, P, P, I, P]
     for fn in (lib.pysco_half_sweep, lib.pysco_scalaron_half_sweep,
-               lib.pysco_scalaron_exact_half_sweep, lib.pysco_norm2_blocks,
+               lib.pysco_scalaron_exact_half_sweep,
+               lib.pysco_scalaron_quartic_exact_half_sweep,
+               lib.pysco_norm2_blocks,
                lib.pysco_residual_norm2, lib.pysco_norm2_variant_blocks,
                lib.pysco_residual_norm2_variant, lib.pysco_restrict3,
                lib.pysco_add_prolongation):
@@ -413,6 +456,31 @@ def scalaron_exact_half_sweep(src, dst, hb, d1_q: float, to_red: bool,
         _stream(out))
     _raise_on(err, "scalaron_exact_half_sweep")
     LAUNCHES["scalaron_exact_half_sweep"] += 1
+    return out
+
+
+def scalaron_quartic_exact_half_sweep(src, dst, hb, c_q: float,
+                                      to_red: bool, f_relax: float,
+                                      rhs=None) -> torch.Tensor:
+    """One colour half of the packed f(R) n = 2 scalaron sweep with the
+    float64 closed-form root, on (n, n/2, n) half-lattices: p = hb -
+    sum_nb(src^3)/6 in float32, the real root of u^4 + p u + c = 0
+    (:func:`solution_quartic_equation`) with c = c_q (h^2 q, a float) or
+    c_q - rhs (``rhs`` an (n, n/2, n) float32 plane), cast to float32, and
+    dst + f_relax (root - dst)."""
+    if not _on_cuda("scalaron_quartic_exact_half_sweep", src, dst, hb, rhs):
+        return scalaron_quartic_exact_half_sweep_plain(src, dst, hb, c_q,
+                                                       to_red, f_relax, rhs)
+    n = src.shape[0]
+    _check_sweep("scalaron_quartic_exact_half_sweep", n, src=src, dst=dst,
+                 hb=hb, rhs=rhs)
+    out = torch.empty_like(dst)
+    err = _kernels().pysco_scalaron_quartic_exact_half_sweep(
+        src.data_ptr(), dst.data_ptr(), hb.data_ptr(), _ptr(rhs),
+        float(c_q), out.data_ptr(), n, int(bool(to_red)), _f32(f_relax),
+        _stream(out))
+    _raise_on(err, "scalaron_quartic_exact_half_sweep")
+    LAUNCHES["scalaron_quartic_exact_half_sweep"] += 1
     return out
 
 

@@ -25,7 +25,8 @@ from pysco_tpu_torch.ops import fourier, stencil, tiled_pm
 from pysco_tpu_torch.ops.mesh import periodic_wrap
 from pysco_tpu_torch.utils import io as iostream
 
-from exact_root_states import exact_states
+from exact_root_states import (exact_states, quartic_off_cells,
+                               quartic_states)
 
 torch.set_num_threads(1)
 
@@ -746,10 +747,47 @@ def test_scalaron_exact_half_sweep_matches_twin(cuda, n):
         stencil.scalaron_exact_half_sweep(x, x, x, -1.0, True, 1.25)
 
 
+@pytest.mark.parametrize("n", [4, 8, 64, 256, 512])
+def test_scalaron_quartic_exact_half_sweep_matches_twin(cuda, n):
+    """The quartic exact-root sweep (f(R) n = 2) against its twin on the
+    card, bitwise (the float64 closed form with torch's libdevice calls,
+    --fmad=false), on every branch of the closed form, with a scalar c and
+    the rhs plane, both colours, but on the cells where libdevice's pow,
+    built with --fmad=false, rounds a float64 ulp away from torch's (about
+    1 x in 10^6): those within one float32 ulp, or, where Q + d0/Q cancels
+    and the ulp moves the branch or the root, bitwise the twin with its
+    cube root one float64 ulp away; fewer than one cell in 10^5."""
+    off = cells = 0
+    for name, ((src, dst, hb, rhs), c_q) in quartic_states(n, cuda).items():
+        for r in (None, rhs):
+            for to_red in (True, False):
+                before = stencil.LAUNCHES["scalaron_quartic_exact_half_sweep"]
+                got = stencil.scalaron_quartic_exact_half_sweep(
+                    src, dst, hb, c_q, to_red, 1.25, r)
+                assert (stencil.LAUNCHES["scalaron_quartic_exact_half_sweep"]
+                        == before + 1)
+                assert torch.isfinite(got).all()
+                k = quartic_off_cells(got, src, dst, hb, c_q, to_red, r)
+                assert k["explained"] == k["off"], (name, r is not None,
+                                                    to_red, k)
+                off += k["off"]
+                cells += got.numel()
+    assert off * 100000 <= cells, off
+    x = torch.zeros((6, 3, 6), device=cuda)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        stencil.scalaron_quartic_exact_half_sweep(x, x, x, -1.0, True, 1.25)
+    y = torch.zeros((8, 4, 8), device=cuda)
+    odd = torch.zeros(y.numel() + 1, device=cuda)[1:].view(y.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        stencil.scalaron_quartic_exact_half_sweep(y, y, y, -1.0, True, 1.25,
+                                                  odd)
+
+
 def test_exact_smoothing_launches_the_kernel(cuda):
     """cubic.smoothing with exact roots on the card launches the exact
     sweep twice a sweep and counts it in a profiled step; the quartic's
-    exact roots (n = 2) keep their torch path."""
+    exact roots (n = 2) launch the quartic exact sweep twice a sweep and
+    nothing else."""
     from torch.profiler import ProfilerActivity, profile
 
     from pysco_tpu_torch.models import cubic, quartic
@@ -778,22 +816,27 @@ def test_exact_smoothing_launches_the_kernel(cuda):
         profiling.reset_spans()
     before = dict(stencil.LAUNCHES)
     quartic.smoothing(x, b, -0.1, sweeps, exact_root=True)
-    assert stencil.LAUNCHES == before
+    quartic.smoothing(x, b, -0.1, sweeps, rhs=1e-3 * b, exact_root=True)
+    name = "scalaron_quartic_exact_half_sweep"
+    assert stencil.LAUNCHES == dict(before, **{name: before[name]
+                                               + 2 * 2 * sweeps})
 
 
-@pytest.mark.parametrize("root", ["newton", "exact"])
+@pytest.mark.parametrize("root", ["newton", "exact", "exact_n2"])
 def test_fr_run_reproducible(cuda, tmp_path, monkeypatch, root):
-    """An f(R) n = 1 multigrid run twice on the card (device ICs): bitwise
+    """An f(R) multigrid run twice on the card (device ICs): bitwise
     equal final snapshots and P(k), and every kernel of the root's path,
     its scalaron sweep among them, launched on every step. With the exact
     roots the second run takes the sweep's torch twin in place of the
-    kernel: the kernel changes no bit of the run."""
+    kernel: the kernel changes no bit of the run. f(R) n = 1, and n = 2
+    with the quartic's exact sweep (``exact_n2``)."""
     from pysco_tpu_torch import ic_device
 
     pk_file = tmp_path / "pk.dat"
     write_power_spectrum_table(str(pk_file))
     param = {
-        "theory": "fr", "fR_n": 1, "fR_logfR0": 5, "H0": 72,
+        "theory": "fr", "fR_n": 2 if root == "exact_n2" else 1,
+        "fR_logfR0": 5, "H0": 72,
         "Om_m": 0.25733, "T_cmb": 2.726, "N_eff": 3.044, "w0": -1.0,
         "wa": 0.0, "boxlen": 100, "ncoarse": 5, "npart": 32 ** 3,
         "z_start": 49, "seed": 42, "position_ICS": "center",
@@ -803,19 +846,22 @@ def test_fr_run_reproducible(cuda, tmp_path, monkeypatch, root):
         "save_power_spectrum": "yes", "integrator": "leapfrog",
         "mass_scheme": "CIC", "Courant_factor": 1.0,
         "max_aexp_stepping": 10, "linear_newton_solver": "multigrid",
-        "gradient_stencil_order": 5, "verbose": 0, "fR_root_solver": root,
+        "gradient_stencil_order": 5, "verbose": 0,
+        "fR_root_solver": "newton" if root == "newton" else "exact",
     }
     assert ic_device.supported(param)
-    # the slab mode's call forms, and the other root's sweep
-    idle = {"deposit_slab", "gather_slab",
-            "scalaron_half_sweep" if root == "exact"
-            else "scalaron_exact_half_sweep"}
+    # the slab mode's call forms and the other roots' sweeps
+    sweeps = {"newton": "scalaron_half_sweep",
+              "exact": "scalaron_exact_half_sweep",
+              "exact_n2": "scalaron_quartic_exact_half_sweep"}
+    sweep = sweeps[root]
+    idle = {"deposit_slab", "gather_slab"} | set(sweeps.values()) - {sweep}
     outs = []
     for tag in ("a", "b"):
-        if root == "exact" and tag == "b":
-            monkeypatch.setattr(stencil, "scalaron_exact_half_sweep",
-                                stencil.scalaron_exact_half_sweep_plain)
-            idle.add("scalaron_exact_half_sweep")
+        if root != "newton" and tag == "b":
+            monkeypatch.setattr(stencil, sweep,
+                                getattr(stencil, f"{sweep}_plain"))
+            idle.add(sweep)
         base = tmp_path / tag
         stencil.reset_launches()
         tiled_pm.reset_launches()

@@ -16,7 +16,9 @@ steps, each figure a traced step:
   device time its child spans cover, and the step trees in the store
   (``step_trees``) against the traced steps;
 - ``outside``: the device-trace readings the span readings must not fall
-  under (the CUB sort kernels, ``deposit_tiles``, ``gather_march``).
+  under (the CUB sort kernels, ``deposit_tiles``, ``gather_march``);
+- ``launches``: the program's kernel launches (``stencil.LAUNCHES``,
+  ``tiled_pm.LAUNCHES``) a traced step, to hold against the counters.
 
 Needs a CUDA card, as the benchmark does.
 """
@@ -92,6 +94,7 @@ def main(argv=None) -> int:
         "by_level": {k: [c / steps, ms / steps]
                      for k, (c, ms) in sorted(by_level.items())},
         "counters": {k: v / steps for k, v in totals["counters"].items()},
+        "launches": {k: v / steps for k, v in reduced["launches"].items()},
         "accounting": {
             "step_device_ms": step["device_ms"] / steps,
             "outside_step_ms": outside_ms,
