@@ -1,15 +1,15 @@
-"""Run loops and CLI (PyTorch port of ``pysco_tpu/main.py``).
+"""Run loop and CLI (PyTorch port of ``pysco_tpu/main.py``).
 
 ``run(param, device)`` computes the background tables on the host and
 the initial conditions on the device (LPT on the tiled engine, unless
 ``ic_device`` is false) or on the host, then runs the adaptive
 kick-drift-kick loop on the device, writing snapshots and power spectra
-at each ``z_out``. The
-host picks dt from the previous step's max |acc| and max |vel|, and
-the lazy re-binning level from the accumulated drift bound.
-``parallel_mode = replicated`` and ``slab`` run the same loop over a mesh
-of devices (``parallel/``): particles sharded and grids replicated, or
-both sharded in x-slabs.
+at each ``z_out``. The host picks dt from the previous step's max |acc|
+and max |vel|, and the lazy re-binning level from the accumulated drift
+bound. One loop (:func:`_loop`) serves every ``parallel_mode``; a stepper
+holds the mode's state and steps: :class:`_SingleStepper` on one device,
+``parallel/pm.ReplicatedStepper`` (particles sharded, grids replicated)
+and ``parallel/slab.SlabStepper`` (both sharded in x-slabs) over a mesh.
 """
 
 from __future__ import annotations
@@ -31,8 +31,9 @@ from . import solver as solver_mod
 from .models import multigrid
 from .ops import mesh as mesh_ops
 from .ops import cuda_build, stencil, tiled_pm
-from .parallel import ic_slab
+from .parallel import ic_slab, slab
 from .parallel import mesh as pmesh
+from .parallel import pm as par_pm
 from .utils import io as iostream
 from .utils import profiling
 from .utils.config import Params, extra_name, params_from_dict, with_defaults
@@ -147,40 +148,6 @@ def _resolve_device(device) -> torch.device:
     return device
 
 
-def _output_times(param, tables, z_out):
-    """The output scale factors and times, and the snapshot counter moved
-    on to the first of them."""
-    aexp_out = np.sort(1.0 / (np.array(z_out, dtype=np.float64) + 1))
-    t_out = np.array([float(tables[1](np.log(a))) for a in aexp_out])
-    logging.info("aexp_out=%s", aexp_out)
-    param["i_snap"] = int(param.get("i_snap", 0)) + 1
-    return aexp_out, t_out
-
-
-def _finish_step(param, cfg, records, t_step0, presorted, diag,
-                 what: str, save_pk: bool, pk) -> tuple:
-    """The end of a step in every loop: fetch the diagnostics (which
-    synchronises the devices, so the step's wall time is a true one), record
-    the step, abort on an overflow, then write the P(k). Returns
-    (max_abs_acc, max_abs_vel)."""
-    max_abs_acc = float(diag.max_abs_acc)
-    max_abs_vel = float(diag.max_abs_vel)
-    overflow = int(diag.overflow)
-    seconds = perf_counter() - t_step0
-    mean_u = float(diag.mean_additional)
-    logging.info("step wall time: %.1f ms", 1e3 * seconds)
-    records.append(StepRecord(int(param["nsteps"]), presorted, seconds,
-                              overflow,
-                              {**tiled_pm.LAUNCHES, **stencil.LAUNCHES},
-                              mean_u))
-    _handle_overflow(param, overflow, what)
-    if save_pk:
-        _write_pk(pk, param)
-    if cfg.theory == "fr" and param["nsteps"] % 10 == 0:
-        logging.info("mean(u_scalaron)=%s (should stay close to 1)", mean_u)
-    return max_abs_acc, max_abs_vel
-
-
 def run(param, device="cuda", devices=None) -> list:
     """Run an N-body simulation from a parameter container (dict/Params)
     on ``device`` (``"cuda"`` by default; raises if CUDA is not
@@ -211,9 +178,10 @@ def run(param, device="cuda", devices=None) -> list:
     reuses.
 
     Differences from ``pysco_tpu.run``:
-    - a step's overflow count (drift-bound violations, slab capacity) is
-      checked *before* its power spectrum is written, in all three loops,
-      so an aborted step leaves no P(k) file (the JAX loops write first);
+    - a step's overflow count (drift-bound violations, slab capacity,
+      the dense engine's plane capacity) is checked *before* its power
+      spectrum is written, the first force evaluation's too, so an aborted
+      step leaves no P(k) file (the JAX loops write first);
     - slab mode's multigrid and FAS take a slab's first guess -h^2 b / 6
       (and the f(R) scalaron's) with h from the grid's size, where the JAX
       slab functions take the slab's height: the port's slab solves are the
@@ -280,301 +248,158 @@ def run(param, device="cuda", devices=None) -> list:
     cfg = solver_mod.config_from_param(param)
     integrator = str(param["integrator"]).casefold()
     pk_mode = _save_pk_mode(param)
-    if parallel_mode in ("slab", "replicated"):
-        if mesh is None:  # a restart that restored the mode
-            mesh = pmesh.make_mesh(devices=devices, device=device)
-        if parallel_mode == "slab":
-            return _run_slab(param, tables, cfg, integrator, pk_mode,
-                             position, velocity, z_out, mesh, slab_state)
-        return _run_replicated(param, tables, cfg, integrator, pk_mode,
-                               position, velocity, z_out, mesh)
-    if parallel_mode != "single":
+    if parallel_mode in ("slab", "replicated") and mesh is None:
+        mesh = pmesh.make_mesh(devices=devices, device=device)  # a restart
+    if parallel_mode == "slab":
+        stepper = slab.SlabStepper(param, cfg, integrator, mesh, position,
+                                   velocity, slab_state)
+    elif parallel_mode == "replicated":
+        stepper = par_pm.ReplicatedStepper(param, cfg, integrator, mesh,
+                                           position, velocity)
+    elif parallel_mode == "single":
+        if not device_ic:
+            if cfg.particle_engine == "pallas":
+                position, velocity = tiled_pm.to_columns_host(
+                    position, velocity, cfg.npart)
+            position = torch.as_tensor(np.asarray(position, np.float32)).to(
+                device)
+            velocity = torch.as_tensor(np.asarray(velocity, np.float32)).to(
+                device)
+        stepper = _SingleStepper(param, cfg, integrator, device, position,
+                                 velocity, verbose)
+    else:
         raise NotImplementedError(
             f"parallel_mode={parallel_mode!r}, should be 'single', "
             "'replicated' or 'slab'"
         )
+    # the stepper holds the state from here on: the initial one goes
+    del position, velocity, slab_state
+    return _loop(param, tables, z_out, pk_mode, stepper)
 
-    if not device_ic:
-        if cfg.particle_engine == "pallas":
-            position, velocity = tiled_pm.to_columns_host(
-                position, velocity, cfg.npart)
-        position = torch.as_tensor(np.asarray(position, np.float32)).to(
-            device)
-        velocity = torch.as_tensor(np.asarray(velocity, np.float32)).to(
-            device)
-    potential, u = solver_mod.empty_fields(cfg, device)
 
-    logging.warning("----- Run N-body -----")
-    dyn = solver_mod.compute_dynamics(param)
-    save_pk_first = pk_mode == "yes"
-    position, velocity, acceleration, potential, u, pk, _ = solver_mod.pm(
-        cfg, True, save_pk_first, position, velocity, potential, u, dyn
-    )
-    if save_pk_first:
-        _write_pk(pk, param)
+class _SingleStepper:
+    """The run loop's stepper on one device (:func:`_loop` says what a
+    stepper gives): ``integrate.step_lazy_impl`` on the tiled engine with
+    ``lazy_sort``, ``step_impl`` otherwise; the scatter engine's Morton
+    reorder every ``n_reorder`` steps; the ``profile_dir`` trace of step 2;
+    at verbose = 2, the component breakdown of the first force
+    evaluation."""
 
-    if (verbose >= 2 and cfg.particle_engine == "pallas"
-            and cfg.npart <= 256 ** 3):
-        # one-time per-component breakdown of a force evaluation, each
-        # stage timed alone. It holds a second sorted state and force
-        # mesh, so it can exhaust the card's memory at the largest sizes:
-        # skip it in that case.
-        try:
-            logging.info(
-                "force-evaluation component timings: %s",
-                profiling.component_breakdown(cfg, position, velocity, dyn),
-            )
-        except torch.cuda.OutOfMemoryError as e:
-            logging.warning(
-                "component timing breakdown skipped (%s: needs a state "
-                "clone; insufficient device memory at this size)",
-                type(e).__name__,
-            )
+    def __init__(self, param, cfg, integrator, device, position, velocity,
+                 verbose):
+        self.param, self.cfg, self.integrator = param, cfg, integrator
+        self.device, self.verbose = device, verbose
+        # CFL-bounded lazy re-binning is the tiled engine's; the dense
+        # engine sorts at every step and the scatter engine never does
+        self.lazy = bool(param.get("lazy_sort", True)) and (
+            cfg.particle_engine == "pallas")
+        self.max_drift = cfg.lazy_drift if self.lazy else 0
+        # (position, velocity, acceleration, potential, u)
+        self.state = [position, velocity, None,
+                      *solver_mod.empty_fields(cfg, device)]
+        self.tstarts = None
 
-    aexp_out, t_out = _output_times(param, tables, z_out)
+    def first(self, save_pk, dyn):
+        cfg = self.cfg
+        position, velocity, _, potential, u = self.state
+        *self.state, pk, overflow = solver_mod.pm(
+            cfg, True, save_pk, position, velocity, potential, u, dyn)
+        position, velocity, acceleration, _, u = self.state
+        if (self.verbose >= 2 and cfg.particle_engine == "pallas"
+                and cfg.npart <= 256 ** 3):
+            # one-time per-component breakdown of a force evaluation, each
+            # stage timed alone. It holds a second sorted state and force
+            # mesh, so it can exhaust the card's memory at the largest
+            # sizes: skip it in that case.
+            try:
+                logging.info(
+                    "force-evaluation component timings: %s",
+                    profiling.component_breakdown(cfg, position, velocity,
+                                                  dyn),
+                )
+            except torch.cuda.OutOfMemoryError as e:
+                logging.warning(
+                    "component timing breakdown skipped (%s: needs a state "
+                    "clone; insufficient device memory at this size)",
+                    type(e).__name__,
+                )
+        return pk, integration._diagnostics(acceleration, velocity, u,
+                                            overflow)
 
-    max_abs_acc = float(torch.max(torch.abs(acceleration)))
-    max_abs_vel = float(torch.max(torch.abs(velocity)))
-
-    # CFL-bounded lazy re-binning (tiled engine): skip the sort while the
-    # accumulated drift bound since the last sort fits a drift window
-    lazy = bool(param.get("lazy_sort", True)) and (
-        cfg.particle_engine == "pallas"
-    )
-    tstarts = None
-    cum_drift = np.inf  # no binning yet: the first loop step sorts
-    records = []
-
-    while param["aexp"] < aexp_out[-1]:
-        param["nsteps"] = int(param["nsteps"]) + 1
-        dt = _advance_time(param, tables, aexp_out, t_out,
-                           max_abs_acc, max_abs_vel)
-        dyn = solver_mod.compute_dynamics(param)
-        save_pk = pk_mode == "yes" or (
-            pk_mode == "z_out" and param["write_snapshot"]
-        )
+    def step(self, save_pk, presorted, dyn, dt):
         # profile_dir: a device trace of one steady-state step (step 1
         # still pays one-time set-up, the first sort's geometry among it)
-        profile_dir = param.get("profile_dir", "")
-        tracing = bool(profile_dir) and param["nsteps"] == 2
-        t_step0 = perf_counter()
-        with (profiling.trace(str(profile_dir), device) if tracing
+        profile_dir = self.param.get("profile_dir", "")
+        tracing = bool(profile_dir) and self.param["nsteps"] == 2
+        with (profiling.trace(str(profile_dir), self.device) if tracing
               else contextlib.nullcontext()):
-            presorted = 0
-            if lazy:
-                step_bound = (
-                    max_abs_vel * dt + 0.5 * max_abs_acc * dt * dt
-                ) * cfg.ncells_1d
-                presorted = _drift_level(cum_drift + step_bound,
-                                         cfg.lazy_drift)
-                (position, velocity, acceleration, potential, u, tstarts, pk,
-                 diag) = integration.step_lazy_impl(
-                    cfg, integrator, presorted, save_pk, position, velocity,
-                    acceleration, potential, u, tstarts, dyn, dt,
-                )
-                if presorted:
-                    cum_drift += step_bound
-                    logging.info("lazy re-binning: sort skipped "
-                                 "(drift bound %.3f cells, window %d)",
-                                 cum_drift, presorted)
-                else:
-                    cum_drift = 0.0  # this step sorted after its drift
+            if self.lazy:
+                *self.state, self.tstarts, pk, diag = (
+                    integration.step_lazy_impl(
+                        self.cfg, self.integrator, presorted, save_pk,
+                        *self.state, self.tstarts, dyn, dt))
             else:
-                (position, velocity, acceleration, potential, u, pk,
-                 diag) = integration.step_impl(
-                    cfg, integrator, False, save_pk, position, velocity,
-                    acceleration, potential, u, dyn, dt,
-                )
-            if tracing and device.type == "cuda":
-                torch.cuda.synchronize(device)  # the step's end in the window
-        max_abs_acc, max_abs_vel = _finish_step(
-            param, cfg, records, t_step0, presorted, diag,
-            "lazy re-binning drift-bound violation (particles outside the "
-            "widened windows)" if lazy
-            else "dense particle engine plane-capacity overflow", save_pk,
-            pk)
-        if (param["nsteps"] % int(param["n_reorder"]) == 0
-                and cfg.particle_engine == "scatter"):
+                *self.state, pk, diag = integration.step_impl(
+                    self.cfg, self.integrator, False, save_pk, *self.state,
+                    dyn, dt)
+            if tracing and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)  # the step's end in it
+        return pk, diag
+
+    def after_step(self, nsteps, presorted):
+        if (nsteps % int(self.param["n_reorder"]) == 0
+                and self.cfg.particle_engine == "scatter"):
             # the tiled and dense engines re-sort at every force
             # evaluation already
             logging.info("Reordering particles")
-            position, velocity, acceleration = mesh_ops.reorder_particles(
-                position, velocity, acceleration)
-        if param["write_snapshot"]:
-            pos_np, vel_np = solver_mod.particles_to_rows(cfg, position,
-                                                          velocity)
-            iostream.write_snapshot_particles(pos_np, vel_np, param)
-            param["i_snap"] = int(param["i_snap"]) + 1
-        logging.warning(
-            "nsteps=%d aexp=%.6f z=%.4f",
-            param["nsteps"], param["aexp"], 1.0 / param["aexp"] - 1,
-        )
-    return records
+            self.state[:3] = mesh_ops.reorder_particles(*self.state[:3])
+
+    def rows(self):
+        return solver_mod.particles_to_rows(self.cfg, *self.state[:2])
+
+    def overflow_text(self, presorted):
+        if self.lazy:
+            return ("lazy re-binning drift-bound violation (particles outside "
+                    "the widened windows)")
+        return "dense particle engine plane-capacity overflow"
 
 
-def _run_replicated(param, tables, cfg, integrator, pk_mode, position,
-                    velocity, z_out, mesh) -> list:
-    """Replicated-grid run loop (``parallel/pm.py``): particles sharded
-    over the mesh, field grids replicated, one sum of the deposited grids
-    per force evaluation and everything else local. Every theory, solver
-    and engine of the single mode; a sort at every step, and an abort on
-    a dense-engine plane-capacity overflow."""
-    from .parallel import pm as par_pm
+def _loop(param, tables, z_out, pk_mode, stepper) -> list:
+    """The run loop of every mode: the first force evaluation, then
+    adaptive steps up to the last ``z_out``, with P(k) and snapshots at
+    the outputs. Returns one :class:`StepRecord` per step.
 
-    n_dev = len(mesh)
-    logging.warning("replicated-grid mode: %d devices, %d particles each",
-                    n_dev, cfg.npart // n_dev)
-    par_pm.check_shardable(cfg, n_dev)
-    if cfg.particle_engine == "pallas":
-        position, velocity = tiled_pm.to_columns_host(position, velocity,
-                                                      cfg.npart)
-    position = np.asarray(position, np.float32)
-    phi0, u0 = solver_mod.empty_fields(cfg, "cpu")
-    pos_d, vel_d, acc_d, phi_d, u_d = par_pm.shard_state(
-        mesh, position, np.asarray(velocity, np.float32),
-        np.zeros_like(position), phi0, u0)
+    ``stepper`` holds the state in its mode's layout and gives:
+    - ``cfg``, the ``SolverConfig``;
+    - ``max_drift``, the widest lazy re-binning window in cells (0: a sort
+      at every step);
+    - ``first(save_pk, dyn) -> (pk, diag)``, the first force evaluation;
+    - ``step(save_pk, presorted, dyn, dt) -> (pk, diag)``, one step on a
+      binning ``presorted`` cells stale (0: sort after the drift);
+    - ``after_step(nsteps, presorted)``, what the mode does between steps;
+    - ``rows() -> (position, velocity)``, the particles as NumPy rows;
+    - ``overflow_text(presorted)``, what a nonzero ``diag.overflow`` means.
 
+    A step's overflow aborts the run before its P(k) is written.
+    """
+    cfg = stepper.cfg
     logging.warning("----- Run N-body -----")
     dyn = solver_mod.compute_dynamics(param)
-    save_pk_first = pk_mode == "yes"
-    # first force evaluation: a zero-dt step is deposit -> sum -> solve ->
-    # gather
-    pos_d, vel_d, acc_d, phi_d, u_d, pk, diag = par_pm.make_sharded_step(
-        cfg, mesh, integrator, first_call=True, save_pk=save_pk_first,
-    )(pos_d, vel_d, acc_d, phi_d, u_d, dyn, 0.0)
-    if save_pk_first:
+    save_pk = pk_mode == "yes"
+    pk, diag = stepper.first(save_pk, dyn)
+    _handle_overflow(param, int(diag.overflow), stepper.overflow_text(0))
+    if save_pk:
         _write_pk(pk, param)
-    steps = {flag: par_pm.make_sharded_step(cfg, mesh, integrator,
-                                            save_pk=flag)
-             for flag in (False, True)}
-
-    aexp_out, t_out = _output_times(param, tables, z_out)
-    max_abs_acc = float(diag.max_abs_acc)
-    max_abs_vel = float(diag.max_abs_vel)
-    records = []
-    while param["aexp"] < aexp_out[-1]:
-        param["nsteps"] = int(param["nsteps"]) + 1
-        dt = _advance_time(param, tables, aexp_out, t_out,
-                           max_abs_acc, max_abs_vel)
-        dyn = solver_mod.compute_dynamics(param)
-        save_pk = pk_mode == "yes" or (
-            pk_mode == "z_out" and param["write_snapshot"]
-        )
-        t_step0 = perf_counter()
-        pos_d, vel_d, acc_d, phi_d, u_d, pk, diag = steps[save_pk](
-            pos_d, vel_d, acc_d, phi_d, u_d, dyn, dt)
-        max_abs_acc, max_abs_vel = _finish_step(
-            param, cfg, records, t_step0, 0, diag,
-            "dense particle engine plane-capacity overflow", save_pk, pk)
-        if (param["nsteps"] % int(param["n_reorder"]) == 0
-                and cfg.particle_engine == "scatter"):
-            logging.info("Reordering particles")
-            for r in range(n_dev):  # each shard's rows, among themselves
-                pos_d[r], vel_d[r], acc_d[r] = mesh_ops.reorder_particles(
-                    pos_d[r], vel_d[r], acc_d[r])
-        if param["write_snapshot"]:
-            pos_np, vel_np = solver_mod.particles_to_rows(
-                cfg, *par_pm.gather_state(pos_d, vel_d))
-            iostream.write_snapshot_particles(pos_np, vel_np, param)
-            param["i_snap"] = int(param["i_snap"]) + 1
-        logging.warning(
-            "nsteps=%d aexp=%.6f z=%.4f",
-            param["nsteps"], param["aexp"], 1.0 / param["aexp"] - 1,
-        )
-    return records
-
-
-def _run_slab(param, tables, cfg, integrator, pk_mode, position, velocity,
-              z_out, mesh, state=None) -> list:
-    """Slab-decomposed run loop (``parallel/slab.py``): grids and particles
-    sharded in x over the mesh, every theory and solver, the tiled engine
-    only. ``state`` is the sharded state of ``ic_slab.generate_lpt_slab``;
-    without it the host-built particles are distributed by their base
-    plane."""
-    from .parallel import slab
-
-    slab.check_supported(cfg)
-    n_dev = len(mesh)
-    logging.warning("slab mode: %d devices, %d planes each",
-                    n_dev, cfg.ncells_1d // n_dev)
-    slack = float(param.get("slab_slack", 1.25))
-    if state is None:
-        state = slab.distribute_particles(mesh, cfg, position, velocity,
-                                          slack)
-    del position, velocity
-    pos_d, vel_d, acc_d, phi_d, u_d, ts_d = state
-    del state
-    step_fns = {}
-
-    def step_fn(save_pk, first_call=False, presorted=0):
-        key = (save_pk, first_call, presorted)
-        if key not in step_fns:
-            step_fns[key] = slab.make_slab_step(
-                cfg, mesh, integrator, save_pk=save_pk,
-                first_call=first_call, presorted=presorted)
-        return step_fns[key]
-
-    logging.warning("----- Run N-body -----")
-    dyn = solver_mod.compute_dynamics(param)
-    save_pk_first = pk_mode == "yes"
-    # first force evaluation: a zero-dt step (a kick by acc = 0 and no
-    # drift) is migrate -> sort -> deposit -> solve -> gather
-    pos_d, vel_d, acc_d, phi_d, u_d, ts_d, pk, diag = step_fn(
-        save_pk_first, first_call=True)(pos_d, vel_d, acc_d, phi_d, u_d,
-                                        ts_d, dyn, 0.0)
-    _handle_overflow(param, int(diag.overflow),
-                     "slab particle capacity overflow")
-    if save_pk_first:
-        _write_pk(pk, param)
-
-    # CFL-bounded lazy re-binning, the single-device loop's bound:
-    # migration and the sort are skipped while the drift since the last
-    # sort fits a window. A k-cell window needs slabs of at least
-    # w - 1 + k planes.
-    lazy = bool(param.get("lazy_sort", True))
-    w = slab._WIDTH[cfg.mass_scheme]
-    max_drift = min(int(cfg.lazy_drift),
-                    max(cfg.ncells_1d // n_dev - (w - 1), 0))
-    if max_drift < 1:
-        lazy = False
-    cum_drift = np.inf  # the first loop step sorts
-
-    aexp_out, t_out = _output_times(param, tables, z_out)
+    aexp_out = np.sort(1.0 / (np.array(z_out, dtype=np.float64) + 1))
+    t_out = np.array([float(tables[1](np.log(a))) for a in aexp_out])
+    logging.info("aexp_out=%s", aexp_out)
+    param["i_snap"] = int(param.get("i_snap", 0)) + 1  # the first output
     max_abs_acc = float(diag.max_abs_acc)
     max_abs_vel = float(diag.max_abs_vel)
 
-    # Capacity re-balancing ahead of need: the slabs take on the density
-    # contrast along x as structure forms. Rather than stepping until a
-    # shard overflows (an abort), watch the fullest shard after every sorted
-    # step and grow every shard's buffers before a particle is at risk;
-    # growing appends sentinel columns on each device.
-    headroom = float(param.get("slab_rebalance_headroom", 0.9))
-
-    def rebalance_if_needed():
-        nonlocal pos_d, vel_d, acc_d, slack
-        if not 0.0 < headroom < 1.0:
-            return  # disabled
-        cap = pos_d[0].shape[1]
-        max_count = max(int(t[-1]) for t in ts_d)
-        occ = max_count / cap
-        if occ <= headroom:
-            return
-        slack_new = slack * 1.5
-        # capacities come in whole column quanta: grow until one more fits
-        while slab.shard_capacity(cfg.npart, n_dev, slack_new) <= cap:
-            slack_new *= 1.5
-        logging.warning(
-            "slab occupancy %.0f%% of capacity (max shard %d / %d): "
-            "re-balancing with slack %.2f -> %.2f",
-            100 * occ, max_count, cap, slack, slack_new,
-        )
-        slack = slack_new
-        param["slab_slack"] = slack  # a restart inherits the grown capacity
-        pos_d, vel_d, acc_d = slab.grow_capacity(
-            slab.shard_capacity(cfg.npart, n_dev, slack), pos_d, vel_d,
-            acc_d)
-
-    rebalance_if_needed()
+    # CFL-bounded lazy re-binning: skip the sort while the accumulated
+    # drift bound since the last sort fits a drift window
+    cum_drift = np.inf  # no binning yet: the first loop step sorts
     records = []
     while param["aexp"] < aexp_out[-1]:
         param["nsteps"] = int(param["nsteps"]) + 1
@@ -588,29 +413,36 @@ def _run_slab(param, tables, cfg, integrator, pk_mode, position, velocity,
         step_bound = (
             max_abs_vel * dt + 0.5 * max_abs_acc * dt * dt
         ) * cfg.ncells_1d
-        presorted = (
-            _drift_level(cum_drift + step_bound, max_drift) if lazy else 0
-        )
-        pos_d, vel_d, acc_d, phi_d, u_d, ts_d, pk, diag = step_fn(
-            save_pk, presorted=presorted
-        )(pos_d, vel_d, acc_d, phi_d, u_d, ts_d, dyn, dt)
+        presorted = _drift_level(cum_drift + step_bound, stepper.max_drift)
+        pk, diag = stepper.step(save_pk, presorted, dyn, dt)
         if presorted:
             cum_drift += step_bound
-            logging.info("lazy re-binning: slab sort skipped "
+            logging.info("lazy re-binning: sort skipped "
                          "(drift bound %.3f cells, window %d)",
                          cum_drift, presorted)
         else:
-            cum_drift = 0.0
-        max_abs_acc, max_abs_vel = _finish_step(
-            param, cfg, records, t_step0, presorted, diag,
-            "slab lazy re-binning drift-bound violation" if presorted
-            else "slab particle capacity overflow", save_pk, pk)
-        if not presorted:
-            # the shards' counts change by migration only: on sorted steps
-            rebalance_if_needed()
+            cum_drift = 0.0  # this step sorted after its drift
+        # fetching the diagnostics synchronises the devices, so the step's
+        # wall time is a true one
+        max_abs_acc = float(diag.max_abs_acc)
+        max_abs_vel = float(diag.max_abs_vel)
+        overflow = int(diag.overflow)
+        seconds = perf_counter() - t_step0
+        mean_u = float(diag.mean_additional)
+        logging.info("step wall time: %.1f ms", 1e3 * seconds)
+        records.append(StepRecord(int(param["nsteps"]), presorted, seconds,
+                                  overflow,
+                                  {**tiled_pm.LAUNCHES, **stencil.LAUNCHES},
+                                  mean_u))
+        _handle_overflow(param, overflow, stepper.overflow_text(presorted))
+        if save_pk:
+            _write_pk(pk, param)
+        if cfg.theory == "fr" and param["nsteps"] % 10 == 0:
+            logging.info("mean(u_scalaron)=%s (should stay close to 1)",
+                         mean_u)
+        stepper.after_step(int(param["nsteps"]), presorted)
         if param["write_snapshot"]:
-            pos_np, vel_np = slab.gather_particles(pos_d, vel_d)
-            iostream.write_snapshot_particles(pos_np, vel_np, param)
+            iostream.write_snapshot_particles(*stepper.rows(), param)
             param["i_snap"] = int(param["i_snap"]) + 1
         logging.warning(
             "nsteps=%d aexp=%.6f z=%.4f",

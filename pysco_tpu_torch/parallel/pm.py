@@ -18,6 +18,9 @@ dominate. ``parallel_mode = slab`` shards the grids too.
 
 from __future__ import annotations
 
+import logging
+
+import numpy as np
 import torch
 
 from .. import solver as solver_mod
@@ -144,6 +147,68 @@ def make_sharded_step(cfg: SolverConfig, mesh: Mesh,
         return position, velocity, acceleration, potential, u, pk, diag
 
     return step
+
+
+class ReplicatedStepper:
+    """The run loop's stepper for ``parallel_mode = replicated``
+    (``main._loop`` says what a stepper gives): the state sharded over
+    ``mesh`` by :func:`shard_state`, the steps of :func:`make_sharded_step`
+    (a sort at every step; every theory, solver and engine of the single
+    mode), and the scatter engine's Morton reorder of each shard's rows
+    every ``n_reorder`` steps. ``position`` and ``velocity`` are the
+    host-built rows."""
+
+    max_drift = 0
+
+    def __init__(self, param, cfg: SolverConfig, integrator: str,
+                 mesh: Mesh, position, velocity):
+        n_dev = len(mesh)
+        logging.warning("replicated-grid mode: %d devices, %d particles each",
+                        n_dev, cfg.npart // n_dev)
+        check_shardable(cfg, n_dev)
+        if cfg.particle_engine == "pallas":
+            position, velocity = tiled_pm.to_columns_host(position, velocity,
+                                                          cfg.npart)
+        position = np.asarray(position, np.float32)
+        phi0, u0 = solver_mod.empty_fields(cfg, "cpu")
+        # (position, velocity, acceleration, potential, u), per shard
+        self.state = shard_state(mesh, position,
+                                 np.asarray(velocity, np.float32),
+                                 np.zeros_like(position), phi0, u0)
+        self.param, self.cfg, self.mesh = param, cfg, mesh
+        self.integrator = integrator
+        self.steps = None
+
+    def first(self, save_pk: bool, dyn: DynScalars):
+        # a zero-dt step is deposit -> sum -> solve -> gather
+        *self.state, pk, diag = make_sharded_step(
+            self.cfg, self.mesh, self.integrator, first_call=True,
+            save_pk=save_pk)(*self.state, dyn, 0.0)
+        self.steps = {flag: make_sharded_step(self.cfg, self.mesh,
+                                              self.integrator, save_pk=flag)
+                      for flag in (False, True)}
+        return pk, diag
+
+    def step(self, save_pk: bool, presorted: int, dyn: DynScalars, dt):
+        *self.state, pk, diag = self.steps[save_pk](*self.state, dyn, dt)
+        return pk, diag
+
+    def after_step(self, nsteps: int, presorted: int) -> None:
+        if (nsteps % int(self.param["n_reorder"]) == 0
+                and self.cfg.particle_engine == "scatter"):
+            logging.info("Reordering particles")
+            pos, vel, acc = self.state[:3]
+            # each shard's rows, among themselves
+            for r in range(len(self.mesh)):
+                pos[r], vel[r], acc[r] = mesh_ops.reorder_particles(
+                    pos[r], vel[r], acc[r])
+
+    def rows(self):
+        return solver_mod.particles_to_rows(
+            self.cfg, *gather_state(*self.state[:2]))
+
+    def overflow_text(self, presorted: int) -> str:
+        return "dense particle engine plane-capacity overflow"
 
 
 def shard_state(mesh: Mesh, position, velocity, acceleration, potential, u):

@@ -38,6 +38,7 @@ solver (fft, fft_7pt, full_fft, and multigrid with V, F or W cycles through
 
 from __future__ import annotations
 
+import logging
 import math
 
 import numpy as np
@@ -631,6 +632,102 @@ def make_slab_step(cfg: SolverConfig, mesh: Mesh,
         return position, velocity, acceleration, phi, u, tstarts, pk, diag
 
     return step
+
+
+class SlabStepper:
+    """The run loop's stepper for ``parallel_mode = slab`` (``main._loop``
+    says what a stepper gives): grids and particles sharded in x over
+    ``mesh``, the steps of :func:`make_slab_step` (every theory and solver,
+    the tiled engine only), and the capacity re-balancing after sorted
+    steps. ``state`` is the sharded state of ``ic_slab.generate_lpt_slab``;
+    without it the host-built rows ``position`` and ``velocity`` are
+    distributed by their base plane."""
+
+    def __init__(self, param, cfg: SolverConfig, integrator: str,
+                 mesh: Mesh, position, velocity, state=None):
+        check_supported(cfg)
+        n_dev = len(mesh)
+        logging.warning("slab mode: %d devices, %d planes each",
+                        n_dev, cfg.ncells_1d // n_dev)
+        self.slack = float(param.get("slab_slack", 1.25))
+        if state is None:
+            state = distribute_particles(mesh, cfg, position, velocity,
+                                         self.slack)
+        # (position, velocity, acceleration, phi, u, tstarts), per shard
+        self.state = list(state)
+        self.param, self.cfg, self.mesh = param, cfg, mesh
+        self.integrator = integrator
+        self.steps = {}
+        # lazy re-binning skips migration and the sort; a k-cell window
+        # needs slabs of at least w - 1 + k planes
+        self.max_drift = 0
+        if param.get("lazy_sort", True):
+            self.max_drift = min(
+                int(cfg.lazy_drift),
+                max(cfg.ncells_1d // n_dev - (_WIDTH[cfg.mass_scheme] - 1),
+                    0))
+        # Capacity re-balancing ahead of need: the slabs take on the
+        # density contrast along x as structure forms. Rather than stepping
+        # until a shard overflows (an abort), watch the fullest shard after
+        # every sorted step and grow every shard's buffers before a particle
+        # is at risk; growing appends sentinel columns on each device.
+        self.headroom = float(param.get("slab_rebalance_headroom", 0.9))
+
+    def first(self, save_pk: bool, dyn: DynScalars):
+        # a zero-dt step (a kick by acc = 0 and no drift) is migrate ->
+        # sort -> deposit -> solve -> gather
+        pk, diag = self.step(save_pk, 0, dyn, 0.0, first_call=True)
+        self.rebalance_if_needed()
+        return pk, diag
+
+    def step(self, save_pk: bool, presorted: int, dyn: DynScalars, dt,
+             first_call: bool = False):
+        key = (save_pk, first_call, presorted)
+        if key not in self.steps:
+            self.steps[key] = make_slab_step(
+                self.cfg, self.mesh, self.integrator, save_pk=save_pk,
+                first_call=first_call, presorted=presorted)
+        *self.state, pk, diag = self.steps[key](*self.state, dyn, dt)
+        return pk, diag
+
+    def after_step(self, nsteps: int, presorted: int) -> None:
+        if not presorted:
+            # the shards' counts change by migration only: on sorted steps
+            self.rebalance_if_needed()
+
+    def rebalance_if_needed(self) -> None:
+        """Grow every shard's capacity when the fullest shard holds more
+        than ``slab_rebalance_headroom`` of it (0 or 1 and beyond: never)."""
+        if not 0.0 < self.headroom < 1.0:
+            return
+        cfg, n_dev = self.cfg, len(self.mesh)
+        cap = self.state[0][0].shape[1]
+        max_count = max(int(t[-1]) for t in self.state[5])
+        occ = max_count / cap
+        if occ <= self.headroom:
+            return
+        slack_new = self.slack * 1.5
+        # capacities come in whole column quanta: grow until one more fits
+        while shard_capacity(cfg.npart, n_dev, slack_new) <= cap:
+            slack_new *= 1.5
+        logging.warning(
+            "slab occupancy %.0f%% of capacity (max shard %d / %d): "
+            "re-balancing with slack %.2f -> %.2f",
+            100 * occ, max_count, cap, self.slack, slack_new,
+        )
+        self.slack = slack_new
+        # a restart inherits the grown capacity
+        self.param["slab_slack"] = self.slack
+        self.state[:3] = grow_capacity(
+            shard_capacity(cfg.npart, n_dev, self.slack), *self.state[:3])
+
+    def rows(self):
+        return gather_particles(*self.state[:2])
+
+    def overflow_text(self, presorted: int) -> str:
+        if presorted:
+            return "slab lazy re-binning drift-bound violation"
+        return "slab particle capacity overflow"
 
 
 # ---------------------------------------------------------------------------

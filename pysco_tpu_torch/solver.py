@@ -61,7 +61,8 @@ class SolverConfig:
     fR_n: int = 1
     # "newton": three float32 Newton steps from the current value per
     # scalaron cell update (the sweep kernel on the card); "exact": the
-    # float64 closed-form roots, in plain torch
+    # float64 closed-form roots, one exact-root sweep kernel a colour
+    # update on the card for n = 1 and 2
     fR_root_solver: str = "newton"
     # multigrid cycle type for the linear and FAS solves: V, F or W
     multigrid_cycle: str = "V"
