@@ -42,6 +42,13 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    deposits bitwise equal and the gather bitwise its twin; four slab
    deposits and ``add_spill`` against the single-device deposit; both
    forms' times at 256^3 CIC for a whole grid and a quarter, with bounds;
+   the deposit at 512^3 on three states, CIC and TSC at drift 0-3 (uniform,
+   the z = 0 state of a seeded run of the benchmark's
+   ``newton_fft_cic_512``, that state redrawn inside its tiles): the
+   kernel's time beside its bound and, with ``--before-deposit``, an
+   earlier kernel's in turns; on the z = 0 state two deposits bitwise
+   equal at every drift, the mass kept, the kernel against its twin, the
+   twin's and ``index_add_``'s times;
 4. golden: the full-horizon configuration of
    ``tests/test_full_run_fidelity.py`` through ``pysco_tpu_torch.run``
    must match ``tests/golden_pk_32.json`` within 1e-4; two P(k) of one
@@ -621,6 +628,211 @@ def phase_kernels(torch):
     times[("cic", 0)].update(s_times)
     meta.update(s_meta)
     return err, times[("cic", 0)], meta
+
+
+def _evolved_state(torch, seed: int = 20201):
+    """Column positions at z = 0 of a seeded run of the benchmark's
+    ``newton_fft_cic_512`` configuration at its ``lazy`` cadence
+    (``benchmark/cell.py``'s set-up, then ``benchmark/loop.py`` to the last
+    output); returns them and the steps taken."""
+    from pathlib import Path
+
+    here = Path(REPO) / "benchmark"
+    if str(here) not in sys.path:
+        sys.path.insert(0, str(here))
+    import cell
+
+    config = cell.load_json(here / "configs" / "newton_fft_cic_512.json")
+    traffic = cell.load_json(here / "traffic" / "lazy.json")
+    base = tempfile.mkdtemp(prefix="pysco_states_")
+    try:
+        param = cell._param(config, seed, base, traffic["param"], here)
+        sim, _, _ = cell._set_up(param, traffic, seed, torch.device("cuda"),
+                                 base)
+        steps = len(traffic["warmup_levels"])
+        while not sim.finished:
+            sim.step()
+            steps += 1
+        pos = sim.position
+        del sim
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    return pos, steps
+
+
+def _tile_redrawn(torch, tp, ps, ts, m, scheme, gen):
+    """``ps`` with every real particle drawn anew uniformly inside its own
+    tile (its base cell uniform over the tile's cells, its offset in the
+    cell uniform): the tile counts and the columns' order are kept, the
+    clumping inside a tile is gone."""
+    g = tp._geometry(m, scheme)
+    n_up = ps.shape[1]
+    tile = tp._tile_of_columns(ts, n_up).long()
+    real = (ps[0] < tp.SENTINEL_MIN) & (tile < g.ntiles)
+    plane = tile // (g.nby * g.nbz)
+    by = ((tile // g.nbz) % g.nby) * tp.YB + torch.randint(
+        0, tp.YB, (n_up,), generator=gen, device="cuda")
+    bz = (tile % g.nbz) * g.zbs + torch.randint(
+        0, g.zbs, (n_up,), generator=gen, device="cuda")
+    off = {"ngp": 0.0, "cic": 0.5, "tsc": 1.0}[scheme]
+    out = ps.clone()
+    for axis, base in ((0, plane), (1, by), (2, bz)):
+        u = 0.01 + 0.98 * torch.rand(n_up, generator=gen, device="cuda")
+        out[axis] = torch.where(
+            real, torch.remainder((base + off + u) / m, 1.0), out[axis])
+    keys = tp.tile_keys(out, m, scheme)
+    check(torch.equal(keys[real], tile[real]),
+          f"redrawn state left its tiles ({scheme})")
+    return out
+
+
+def _before_lib(path: str):
+    """A deposit kernel source to time beside the package's (an earlier
+    ``csrc/deposit.cu`` with its own ``tiled_pm.cuh`` beside it), built
+    alone into a library of its own."""
+    import ctypes
+
+    from pysco_tpu_torch.ops import cuda_build
+
+    out = os.path.join(tempfile.mkdtemp(prefix="pysco_before_"),
+                       "libdeposit_before.so")
+    cmd = [cuda_build._nvcc(), *cuda_build.FLAGS, "-shared", "-o", out,
+           os.path.abspath(path)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    check(r.returncode == 0, f"building {path} failed:\n{r.stderr[-3000:]}")
+    for line in (r.stdout + r.stderr).splitlines():
+        if "ptxas info" in line and "Used" in line:
+            log("    before: " + line.strip())
+    lib = ctypes.CDLL(out)
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.pysco_deposit.argtypes = [P, L, P, P, I, I, I, I, I, I, I, I, I, P]
+    lib.pysco_deposit.restype = I
+    return lib
+
+
+def _raw_deposit(torch, tp, lib, ps, ts, m, scheme, drift):
+    """A call of ``lib``'s deposit kernel alone into a padded grid zeroed
+    once (the call's sums pile up: for timing only). Pointer arguments the
+    older signature lacks (after ``plane0``) are passed as null."""
+    g = tp._geometry(m, scheme, drift)
+    gp = torch.zeros(g.padded_shape(m), device="cuda")
+    extra = len(lib.pysco_deposit.argtypes) - 14
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        err = lib.pysco_deposit(ps.data_ptr(), ps.shape[1], ts.data_ptr(),
+                                gp.data_ptr(), m, g.w, drift, g.wy_pad, g.wz,
+                                g.zbs, g.nbz, g.n_planes, 0,
+                                *([None] * extra), stream)
+        check(err == 0, f"deposit kernel failed: CUDA error {err}")
+    return call
+
+
+def _index_add_ms(torch, tp, ps, m, scheme, parts=4):
+    """``index_add_`` of every (cell, weight) pair of the real particles
+    into a zeroed grid, the pairs precomputed (``mesh._contribs``), in
+    ``parts`` particle slices whose times add up (a TSC call's pairs
+    would not fit the card at once)."""
+    from pysco_tpu_torch.ops import mesh
+
+    real = ps[0] < tp.SENTINEL_MIN
+    rows = ps[:3, real].T.contiguous()
+    grid = torch.zeros(m ** 3, device="cuda")
+    total = 0.0
+    for sl in torch.chunk(rows, parts):
+        contribs = mesh._contribs(sl, m, scheme)
+        idx = torch.cat([c[0] for c in contribs])
+        wts = torch.cat([c[1] for c in contribs])
+        del contribs
+        total += time_ms(torch, lambda: grid.index_add_(0, idx, wts), 3)
+        del idx, wts
+    del rows, grid
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_deposit_states(torch, np, before=None):
+    """Phase 3, the deposit at 512^3 particles on the 512^3 grid (z-blocked
+    tiles) on three states: uniform; z = 0 of a seeded 512^3 run
+    (:func:`_evolved_state`); that state with every particle redrawn
+    inside its own tile (:func:`_tile_redrawn`). For CIC and TSC, freshly
+    sorted, at drift 0-3: the kernel's time (CUDA events, the kernel
+    alone) beside its bound (12 N + 4 n^3 bytes); with ``before``, a
+    deposit.cu to compare (:func:`_before_lib`), both timed in turns. On
+    the z = 0 state: two deposits bitwise equal at every drift, the
+    kernel against its twin at drift 0 with the twin's time and
+    ``index_add_``'s. Returns the numbers."""
+    from pysco_tpu_torch.ops import tiled_pm as tp
+
+    t0 = time.perf_counter()
+    m = 512
+    n = m ** 3
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20)
+    old = _before_lib(before) if before else None
+    z0, steps = _evolved_state(torch)
+    log(f"[3 states] z = 0 state of newton_fft_cic_512 (lazy cadence) in "
+        f"{steps} steps, {time.perf_counter() - t0:.1f} s")
+    uni, _ = tp.to_columns(torch.rand((n, 3), generator=gen, device="cuda"),
+                           torch.zeros((1, 3), device="cuda"), n)
+    lib = tp._kernels()
+    dep_bound = bound(12 * n + 4 * m ** 3, 0)[0]
+    out = {"bound_ms": dep_bound, "steps": steps, "ms": {}}
+    for scheme in ("cic", "tsc"):
+        states = {}
+        for name, pos in (("uniform", uni), ("z0", z0)):
+            ps, _, ts = tp.sort_particles(pos, pos[:1], m, scheme)
+            states[name] = (ps, ts)
+        states["redrawn"] = (_tile_redrawn(torch, tp, *states["z0"], m,
+                                           scheme, gen), states["z0"][1])
+        for drift in range(4):
+            for name, (ps, ts) in states.items():
+                fns = {"kernel": _raw_deposit(torch, tp, lib, ps, ts, m, scheme,
+                                           drift)}
+                if old is not None:
+                    fns["before"] = _raw_deposit(torch, tp, old, ps, ts, m,
+                                                 scheme, drift)
+                order = ["kernel", "before", "before", "kernel"] if old \
+                    else ["kernel", "kernel"]
+                t = {k: [] for k in fns}
+                for k in order:
+                    t[k].append(time_ms(torch, fns[k], 3))
+                del fns
+                torch.cuda.empty_cache()
+                key = f"{scheme}.{name}.d{drift}"
+                out["ms"][key] = {k: sum(v) / len(v) for k, v in t.items()}
+                msg = " ".join(f"{k} {v:.3f} ms"
+                               for k, v in out["ms"][key].items())
+                log(f"[3 states] {scheme} drift={drift} {name}: {msg} "
+                    f"(bound {dep_bound:.3f} ms, "
+                    f"{100 * dep_bound / out['ms'][key]['kernel']:.2f}%)")
+        ps, ts = states["z0"]
+        for drift in range(4):
+            a = tp.deposit(ps, ts, m, scheme, drift)
+            check(torch.equal(a, tp.deposit(ps, ts, m, scheme, drift)),
+                  f"512^3 z = 0 {scheme} drift={drift}: deposits differ")
+            check(abs(float(a.double().sum()) - n) <= 1e-6 * n,
+                  f"512^3 z = 0 {scheme} drift={drift}: mass not kept")
+            del a
+        d_err, scale, _ = _deposit_check(torch, tp, ps, ts, m, scheme, 0,
+                                         f"512^3 z = 0 {scheme}")
+        t_twin = time_ms(torch, lambda: tp.deposit_plain(ps, ts, m, scheme),
+                         1)
+        del states
+        torch.cuda.empty_cache()
+        t_lib = _index_add_ms(torch, tp, ps, m, scheme)
+        out["ms"][f"{scheme}.z0.twin"] = t_twin
+        out["ms"][f"{scheme}.z0.index_add"] = t_lib
+        log(f"[3 states] {scheme} z = 0: two deposits bitwise equal at drift "
+            f"0-3, mass kept; kernel vs twin {d_err:.2e} (max count "
+            f"{scale:.3e}); twin {t_twin:.1f} ms, index_add_ {t_lib:.1f} ms")
+        del ps, ts
+        torch.cuda.empty_cache()
+    del z0, uni
+    torch.cuda.empty_cache()
+    log(f"[3 states] {json.dumps(out)}")
+    log(f"[3 states] in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def _slab_state(torch, tp, n, m, scheme, drift, plane0, n_planes, gen,
@@ -2841,7 +3053,12 @@ def phase_dense_sort(torch, np, tmp):
 
 
 def main() -> int:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--before-deposit", metavar="DEPOSIT_CU",
+                    help="an earlier csrc/deposit.cu (with its tiled_pm.cuh "
+                    "beside it) to time in turns with the package's in "
+                    "phase 3's three 512^3 states")
+    args = ap.parse_args()
     check(os.path.isdir(os.path.join(REPO, "pysco_tpu_torch")),
           "pysco_tpu_torch not found beside chip_smoke.py")
     sys.path.insert(0, REPO)
@@ -2852,6 +3069,7 @@ def main() -> int:
     smi = phase_device(torch)
     phase_build()
     err, times, meta = phase_kernels(torch)
+    phase_deposit_states(torch, np, args.before_deposit)
     err_st, times_st, meta_st = phase_stencil_kernels(torch, np)
     err.update(err_st)
     times.update(times_st)

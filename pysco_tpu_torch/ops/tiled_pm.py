@@ -34,6 +34,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 F32 = torch.float32
 I32 = torch.int32
 I64 = torch.int64
@@ -53,10 +55,15 @@ SORT_MODES = ("full", "nearly", "index", "nearly_index")
 
 # dynamic shared memory a block may opt into on Hopper (H100/H200)
 _SMEM_LIMIT = 232448
-# csrc/deposit.cu: particles staged per pass (256 threads x 2) and the
-# bytes kept for its block sort
+# csrc/deposit.cu: its threads a block, the particles staged per pass (2 a
+# thread), and the bytes kept for its block sort and for its prefix sum
+_DEPOSIT_THREADS = 256
 _DEPOSIT_CHUNK = 512
 _DEPOSIT_SORT_SCRATCH = 12288
+_DEPOSIT_SCAN_SCRATCH = 64
+# its program counters (read under a profiler only): the chunks summed,
+# and those in which one thread's adds exceeded 4 times the mean a thread
+DEPOSIT_COUNTERS = ("deposit_chunks", "deposit_chunks_unbalanced")
 _GATHER_VEC = 4  # csrc/gather.cu: z cells of its 16-byte copies
 
 
@@ -399,7 +406,8 @@ def _kernels():
 
     lib = cuda_build.load()
     P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.pysco_deposit.argtypes = [P, L, P, P, I, I, I, I, I, I, I, I, I, P]
+    lib.pysco_deposit.argtypes = [P, L, P, P, I, I, I, I, I, I, I, I, I, P,
+                                  P]
     lib.pysco_deposit.restype = I
     lib.pysco_deposit_smem.argtypes = [I, I, I, I, I, I, I]
     lib.pysco_deposit_smem.restype = L
@@ -425,20 +433,37 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel failed: CUDA error {err}")
 
 
+def _deposit_bins(g: Geometry) -> int:
+    """The deposit kernel's bins: a particle's base cell (zl, yl) in the
+    live window, each from 1 - w (zl over the z line when it is the
+    window), as far as a cell of the window reaches; key ``nbins`` holds
+    the particles with no live cell."""
+    wx, wy, wz = g.live_window
+    nzb = wz if g.nbz == 1 else wz + g.w - 1
+    return nzb * (wy + g.w - 1)
+
+
 def _deposit_smem(g: Geometry) -> int:
     """Dynamic shared memory of a deposit block in bytes, as
-    ``csrc/deposit.cu`` lays it out: the sort scratch (or, after the sort,
-    the sorted keys and the bin starts), the live window, and per staged
-    particle its x, y, z offsets, sorted slot and 3 w weights."""
+    ``csrc/deposit.cu`` lays it out: the sort scratch, or after the sort
+    the sorted particles, the counter's warp sums, the prefix sum's
+    scratch, the visits before each thread's lines, the heavy columns, the
+    bin starts and, in one place, the sorted keys or the threads' partial
+    line sums; then the live window, and 3 w weights a staged particle."""
     wx, wy, wz = g.live_window
-    nbins = wz + g.w - 1
-    scratch = _round_up(max(_DEPOSIT_SORT_SCRATCH,
-                            4 * (_DEPOSIT_CHUNK + nbins + 1)), 16)
-    return scratch + 4 * wx * wy * wz + 4 * _DEPOSIT_CHUNK * (4 + 3 * g.w)
+    threads = _DEPOSIT_THREADS
+    head = (4 * _DEPOSIT_CHUNK + 4 * 2 * (threads // 32)
+            + _DEPOSIT_SCAN_SCRATCH + _round_up(4 * (threads + 1), 16)
+            + 2 * threads)
+    starts = _round_up(2 * (_deposit_bins(g) + 1), 16)
+    shared = max(4 * threads * wx, 2 * _DEPOSIT_CHUNK)
+    scratch = _round_up(max(_DEPOSIT_SORT_SCRATCH, head + starts + shared), 16)
+    return scratch + 4 * wx * wy * wz + 4 * _DEPOSIT_CHUNK * 3 * g.w
 
 
 def _check_deposit_smem(g: Geometry, m: int, scheme: str, drift: int) -> None:
-    """Raise before a launch the card would refuse."""
+    """Raise before a launch the card would refuse. (A window that fits
+    has fewer bins than the kernel's 16-bit keys hold.)"""
     smem = _deposit_smem(g)
     if smem > _SMEM_LIMIT:
         raise ValueError(
@@ -458,12 +483,14 @@ def _padded_sums_cuda(position_sorted, tile_starts, m: int, scheme: str,
     _check_deposit_smem(g, m, scheme, drift)
     gp = torch.zeros(g.padded_shape(m), dtype=F32,
                      device=position_sorted.device)
+    counts = profiling.device_counters(DEPOSIT_COUNTERS, gp.device)
     with torch.cuda.device(gp.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernels().pysco_deposit(
             position_sorted.data_ptr(), n_up, tile_starts.data_ptr(),
             gp.data_ptr(), m, g.w, drift, g.wy_pad, g.wz, g.zbs, g.nbz,
-            g.n_planes, int(plane0), stream,
+            g.n_planes, int(plane0),
+            None if counts is None else counts.data_ptr(), stream,
         )
     _raise_on(err, "deposit")
     LAUNCHES[count] += 1

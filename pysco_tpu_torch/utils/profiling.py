@@ -10,13 +10,15 @@ analysis. On the CPU everything is synchronous and the host clock times
 it.
 
 Spans and counters: the step's layers open :func:`span` (the step itself
-:func:`step_span`) and count host fetches with :func:`count`. They record
-only while a ``torch.profiler`` profile is active (the benchmark's traced
-stretches, the ``profile_dir`` step); otherwise each site costs one
-attribute read and one branch. A span keeps its host enter and exit
-times on ``time.time_ns()``, the clock the profiler stamps its events
-with, and, inside a step on a card, a pair of CUDA events on the current
-stream, resolved when the spans are read (:func:`span_records`,
+:func:`step_span`) and count host fetches with :func:`count`; a kernel
+counts on the device into the tensor :func:`device_counters` hands its
+wrapper, read once when the step closes. They record only while a
+``torch.profiler`` profile is active (the benchmark's traced stretches,
+the ``profile_dir`` step); otherwise each site costs one attribute read
+and one branch. A span keeps its host enter and exit times on
+``time.time_ns()``, the clock the profiler stamps its events with, and,
+inside a step on a card, a pair of CUDA events on the current stream,
+resolved when the spans are read (:func:`span_records`,
 :func:`span_totals`). :func:`trace` adds them to its Chrome trace on a
 track of their own. ``PHASES`` times set-up phases that run once a
 process, always.
@@ -233,6 +235,7 @@ class _Span:
         if store.stack and store.stack[-1] is self:
             store.stack.pop()
         if store.current is self:
+            store.read_device_counters(self)
             store.current = None
         return False
 
@@ -257,6 +260,7 @@ class _Store:
         self.live = False  # the session still takes steps
         self.last_step = None  # the live session's latest step
         self.pool = []
+        self.device = {}  # (names, device): the int64 counts of kernels
 
     def event(self):
         return (self.pool.pop() if self.pool
@@ -289,6 +293,24 @@ class _Store:
         if self.current is not None:
             c = self.current.counters
             c[name] = c.get(name, 0) + n
+
+    def device_counters(self, names: tuple, device: torch.device):
+        if self.current is None:
+            return None
+        key = (names, device)
+        if key not in self.device:
+            self.device[key] = torch.zeros(len(names), dtype=torch.int64,
+                                           device=device)
+        return self.device[key]
+
+    def read_device_counters(self, step) -> None:
+        """Add what the kernels counted in ``step`` to its counters (one
+        fetch a tensor, once the step's work is queued) and start the
+        tensors again from zero."""
+        for (names, _), counts in self.device.items():
+            for name, n in zip(names, counts.tolist()):
+                step.counters[name] = step.counters.get(name, 0) + n
+            counts.zero_()
 
     def _release_exit(self, span) -> None:
         if span.events is not None:
@@ -347,6 +369,17 @@ def count(name: str, n: int = 1) -> None:
     """Add ``n`` to counter ``name`` of the open step."""
     if _autograd_profiler._is_profiler_enabled:
         _STORE.count(name, n)
+
+
+def device_counters(names, device):
+    """The int64 tensor, one entry per name of ``names``, on ``device``
+    that a kernel adds its counts into in the open step; None (count
+    nothing) while no profiler is active or no step is open. The step
+    reads it once when it closes: the counts join its counters under
+    ``names``, and the tensor starts again from zero."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    return _STORE.device_counters(tuple(names), torch.device(device))
 
 
 def reset_spans() -> None:

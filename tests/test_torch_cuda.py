@@ -92,16 +92,63 @@ def _edge_state(ps, ts, m, scheme, drift, zbs, seed, plane0=0,
     return torch.as_tensor(out, device=ps.device)
 
 
+def _clumped_state(m, scheme, drift, seed, device, zbs=None, n=12_000,
+                   tiles=4):
+    """``n`` particles in ``tiles`` tiles (several 512-particle chunks
+    each), every tile's particles on two (y, z) base cells of it, at
+    offsets in the cell whose weights are multiples of 1/8 (float32 sums
+    of their products are exact in any order); tile-sorted, then each
+    tile's particles moved together by one shift per axis of under
+    ``drift`` cells that keeps them on one base cell each."""
+    g = tiled_pm._geometry(m, scheme, 0, zbs)
+    rng = np.random.default_rng(seed)
+    tile = rng.choice(g.ntiles, tiles, replace=False)[rng.integers(0, tiles,
+                                                                 n)]
+    plane = tile // (g.nby * g.nbz)
+    cell_y = rng.integers(0, 8, (g.ntiles, 2))
+    cell_z = rng.integers(0, g.zbs, (g.ntiles, 2))
+    pick = rng.integers(0, 2, n)
+    by = (tile // g.nbz) % g.nby * 8 + cell_y[tile, pick]
+    bz = tile % g.nbz * g.zbs + cell_z[tile, pick]
+    off = {"ngp": 0.0, "cic": 0.5, "tsc": 1.0}[scheme]
+    fracs = [0.5] if scheme == "tsc" else [0.25, 0.75]
+    step = 0.5 if scheme == "tsc" else 0.125
+    shift = np.zeros((g.ntiles, 3))
+    if drift:
+        k = rng.integers(0, drift, (g.ntiles, 3)) + step
+        shift = k * rng.choice([-1.0, 1.0], (g.ntiles, 3))
+    pos = np.stack([(b + off + rng.choice(fracs, n)) % m / m
+                    for b in (plane, by, bz)], 1).astype(np.float32)
+    pc, vc = tiled_pm.to_columns_host(pos, np.zeros_like(pos), n)
+    ps, _, ts = tiled_pm.sort_particles(torch.as_tensor(pc, device=device),
+                                        torch.as_tensor(vc, device=device),
+                                        m, scheme, zbs)
+    if drift:
+        cols = tiled_pm._tile_of_columns(ts, ps.shape[1]).cpu().numpy()
+        real = cols < g.ntiles
+        moved = ps.cpu().numpy().copy()
+        for a in range(3):
+            delta = shift[np.minimum(cols, g.ntiles - 1), a] / m
+            moved[a] = np.where(real, (moved[a] + delta) % 1.0, moved[a])
+        ps = torch.as_tensor(moved.astype(np.float32), device=device)
+    return ps, ts
+
+
 def _case(case, m, scheme, drift, cuda, zbs=None):
     """(position_sorted, tile_starts) of a deposit test case: "clustered"
     (half the particles in a quarter of the box, drifted within the bound),
     "dense" (150 000 on 32^3, drifted: tiles of several 512-particle
     chunks, yet few enough a cell that the twin's float32 sums stay within
-    1e-6 of the largest) or "edge" (_edge_state). All have a sentinel
-    tail; all but "dense" leave the last quarter of the x-planes empty."""
+    1e-6 of the largest), "clumped" (_clumped_state: one x-line or column
+    carries a whole chunk) or "edge" (_edge_state). All have a sentinel
+    tail; "clustered" and "edge" leave the last quarter of the x-planes
+    empty."""
     n = 150_000 if case == "dense" else 3000
     xspan = 1.0 if case == "dense" else 0.75
-    if case == "edge":
+    if case == "clumped":
+        ps, ts = _clumped_state(m, scheme, drift, 3, cuda, zbs)
+        n = 12_000
+    elif case == "edge":
         ps, ts = _state(m, n, scheme, 0, 1, cuda, zbs, xspan)
         ps = _edge_state(ps, ts, m, scheme, drift, zbs, 2)
     else:
@@ -112,12 +159,12 @@ def _case(case, m, scheme, drift, cuda, zbs=None):
     return m, ps, ts
 
 
-@pytest.mark.parametrize("case", ["clustered", "dense", "edge"])
+@pytest.mark.parametrize("case", ["clustered", "dense", "edge", "clumped"])
 @pytest.mark.parametrize("scheme", ["ngp", "cic", "tsc"])
 @pytest.mark.parametrize("drift", [0, 1, 2, 3])
 def test_kernels_match_twins(cuda, scheme, drift, case):
     m, ps, ts = _case(case, 32, scheme, drift, cuda)
-    if case == "dense":
+    if case in ("dense", "clumped"):
         assert int((ts[1:] - ts[:-1]).max()) > 2 * 512  # several chunks
     else:
         assert bool((ts[1:] == ts[:-1]).any())  # empty tiles
@@ -130,6 +177,8 @@ def test_kernels_match_twins(cuda, scheme, drift, case):
     assert torch.equal(grid, tiled_pm.deposit(ps, ts, m, scheme, drift))
     torch.testing.assert_close(grid, twin, rtol=0,
                                atol=1e-6 * float(twin.max()))
+    if case == "clumped":  # every particle's mass, within the window
+        assert float(grid.double().sum()) == 12_000
     field = torch.rand((3, m, m, m), device=cuda)
     got = tiled_pm.gather_vec_cl(field, ps, ts, scheme, drift)
     assert tiled_pm.LAUNCHES["gather"] == before["gather"] + 1
@@ -143,7 +192,10 @@ def test_kernels_match_twins(cuda, scheme, drift, case):
     (32, 8, "cic", 0, "clustered"), (32, 8, "tsc", 2, "clustered"),
     (32, 8, "ngp", 1, "edge"), (32, 8, "cic", 3, "edge"),
     (32, 8, "tsc", 0, "edge"), (512, None, "cic", 1, "clustered"),
-    (512, None, "tsc", 3, "edge")])
+    (512, None, "tsc", 3, "edge"), (32, 8, "ngp", 0, "clumped"),
+    (32, 8, "cic", 1, "clumped"), (32, 8, "tsc", 2, "clumped"),
+    (32, 8, "cic", 3, "clumped"), (512, None, "cic", 2, "clumped"),
+    (512, None, "tsc", 3, "clumped")])
 def test_zblocked_kernel_matches_twin(cuda, m, zbs, scheme, drift, case):
     _, ps, ts = _case(case, m, scheme, drift, cuda, zbs)
     assert tiled_pm._geometry(m, scheme, drift, zbs).nbz > 1
@@ -152,10 +204,33 @@ def test_zblocked_kernel_matches_twin(cuda, m, zbs, scheme, drift, case):
     assert torch.equal(grid, tiled_pm.deposit(ps, ts, m, scheme, drift, zbs))
     torch.testing.assert_close(grid, twin, rtol=0,
                                atol=1e-6 * float(twin.max()))
+    if case == "clumped":
+        assert int((ts[1:] - ts[:-1]).max()) > 2 * 512
+        assert float(grid.double().sum()) == 12_000
     field = torch.rand((3, m, m, m), device=cuda)
     got = tiled_pm.gather_vec_cl(field, ps, ts, scheme, drift, zbs)
     assert torch.equal(
         got, tiled_pm.gather_vec_cl_plain(field, ps, ts, scheme, drift))
+
+
+@pytest.mark.parametrize("scheme,drift,case", [
+    ("cic", 0, "clumped"), ("cic", 1, "clumped"), ("ngp", 1, "clustered"),
+    ("tsc", 0, "edge")])
+def test_long_z_line_kernel_matches_twin(cuda, scheme, drift, case):
+    """Tiles spanning a z line longer than a block's 256 threads (512^3
+    with 512-cell z-blocks: nbz = 1): a thread takes two z columns, and
+    the bins of a heavy column wrap round the line."""
+    m, zbs = 512, 512
+    _, ps, ts = _case(case, m, scheme, drift, cuda, zbs)
+    g = tiled_pm._geometry(m, scheme, drift, zbs)
+    assert g.nbz == 1 and g.live_window[2] > 256
+    grid = tiled_pm.deposit(ps, ts, m, scheme, drift, zbs)
+    twin = tiled_pm.deposit_plain(ps, ts, m, scheme, drift, zbs)
+    assert torch.equal(grid, tiled_pm.deposit(ps, ts, m, scheme, drift, zbs))
+    torch.testing.assert_close(grid, twin, rtol=0,
+                               atol=1e-6 * float(twin.max()))
+    if case == "clumped":
+        assert float(grid.double().sum()) == 12_000
 
 
 def _slab_case(case, m, scheme, drift, cuda, zbs, plane0, n_planes, seed=1):
@@ -360,11 +435,15 @@ def test_gather_smem_matches_kernel(cuda):
 
 
 def test_deposit_smem_matches_kernel(cuda):
-    """The wrapper's shared-memory reckoning is the kernel's own."""
+    """The wrapper's shared-memory reckoning is the kernel's own: the sort
+    scratch or the arrays after it (bin starts, the lines' visit prefix,
+    the threads' partials), the live window, the staged weights."""
     lib = tiled_pm._kernels()
     for m, scheme, drift, zbs in ((32, "cic", 0, None), (32, "tsc", 3, 8),
                                   (256, "tsc", 3, None), (512, "cic", 1, None),
-                                  (504, "tsc", 3, None)):
+                                  (504, "tsc", 3, None), (512, "tsc", 3, None),
+                                  (512, "ngp", 0, None), (256, "cic", 2, 16),
+                                  (2040, "ngp", 0, None)):
         g = tiled_pm._geometry(m, scheme, drift, zbs)
         assert lib.pysco_deposit_smem(m, g.w, drift, g.wy_pad, g.wz, g.zbs,
                                       g.nbz) == tiled_pm._deposit_smem(g)

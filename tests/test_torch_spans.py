@@ -194,6 +194,32 @@ def test_sessions_split_the_gaps_between_steps():
             assert r["gap_ms"] == (r["t0_ns"] - prev["t1_ns"]) / 1e6
 
 
+def test_device_counters_join_the_step_that_counted_them():
+    """A kernel's counter tensor (csrc/deposit.cu's chunks) is handed out
+    only inside a profiled step, read once as that step's counters when it
+    closes, and starts the next step from zero; off the profiler, and
+    outside a step, the wrapper gets None and the kernel counts nothing."""
+    names = tiled_pm.DEPOSIT_COUNTERS
+    like = torch.zeros(1)
+    assert profiling.device_counters(names, "cpu") is None
+    with _profiler():
+        assert profiling.device_counters(names, "cpu") is None  # no step
+        for chunks in (5, 7):
+            with profiling.step_span(like):
+                counts = profiling.device_counters(names, "cpu")
+                assert counts.tolist() == [0, 0]
+                counts += torch.tensor([chunks, 1])  # what a launch adds
+                assert profiling.device_counters(names, "cpu") is counts
+                counts += torch.tensor([chunks, 0])
+    roots = [r for r in profiling.span_records() if r["name"] == "step"]
+    assert [r["counters"] for r in roots] == [
+        {"deposit_chunks": 10, "deposit_chunks_unbalanced": 1},
+        {"deposit_chunks": 14, "deposit_chunks_unbalanced": 1}]
+    assert profiling.span_totals()["counters"] == {
+        "deposit_chunks": 24, "deposit_chunks_unbalanced": 2}
+    assert profiling.device_counters(names, "cpu") is None
+
+
 def test_span_totals_takes_the_last_steps_only():
     param = _param(theory="fr", linear_newton_solver="multigrid", aexp=0.05)
     cfg, dyn, state = _start(param)

@@ -404,23 +404,39 @@ def test_deposit_smem_reckoning():
     (csrc/deposit.cu's layout), and its refusal of a window the card
     cannot hold."""
     chunk, scratch = tiled_pm._DEPOSIT_CHUNK, tiled_pm._DEPOSIT_SORT_SCRATCH
-    # 256^3 CIC at drift 0: the z line of 2 x 9 rows, 6 weights a particle
+    # after the sort: the sorted particles, 2 x 8 warps' counter sums, the
+    # prefix sum's 64 bytes, the 257 visit prefixes (16-byte rounded), 256
+    # heavy columns
+    head = 4 * chunk + 4 * 2 * 8 + 64 + 1040 + 2 * 256
+    # 256^3 CIC at drift 0: the z line of 2 x 9 rows, 6 weights a
+    # particle; 256 x 10 bins, 2-byte starts; 256 partials of 2 cells
     g = tiled_pm._geometry(256, "cic", 0)
     assert g.live_window == (2, 9, 256)
+    assert tiled_pm._deposit_bins(g) == 256 * 10
+    assert head + 5136 + 4 * 256 * 2 < scratch
     assert tiled_pm._deposit_smem(g) == (scratch + 4 * 2 * 9 * 256
-                                         + 4 * chunk * (4 + 6))
-    # 512^3 CIC at drift 1, z-blocked: 4 x 11 x 131 cells
+                                         + 4 * chunk * 6)
+    # 512^3 CIC at drift 1, z-blocked: 4 x 11 x 131 cells, 132 x 12 bins
     g = tiled_pm._geometry(512, "cic", 1)
     assert g.live_window == (4, 11, 131)
+    assert tiled_pm._deposit_bins(g) == 132 * 12
     assert tiled_pm._deposit_smem(g) == (scratch + 4 * 4 * 11 * 131
-                                         + 4 * chunk * (4 + 6))
+                                         + 4 * chunk * 6)
+    # 512^3 TSC at drift 3: the arrays outgrow the sort scratch (2484 bins,
+    # 256 partials of 9 cells), and two blocks still fit an SM's 228 KiB
+    g = tiled_pm._geometry(512, "tsc", 3)
+    assert g.live_window == (9, 16, 136)
+    arrays = head + 4976 + 4 * 256 * 9
+    assert arrays > scratch
+    smem = tiled_pm._deposit_smem(g)
+    assert smem == arrays + 4 * 9 * 16 * 136 + 4 * chunk * 9
+    assert 2 * (smem + 1024) <= 233472
     # a long z line: the bin starts outgrow the sort scratch
     g = tiled_pm._geometry(4000, "ngp", 0)
-    arrays = 4 * (chunk + 4000 + 1)
-    assert arrays > scratch
-    assert tiled_pm._deposit_smem(g) == (-(-arrays // 16) * 16
+    starts = 2 * (8 * 4000 + 1) + 14
+    assert tiled_pm._deposit_smem(g) == (head + starts + 4 * 256
                                          + 4 * 1 * 8 * 4000
-                                         + 4 * chunk * (4 + 3))
+                                         + 4 * chunk * 3)
     # the widest window the tests and smoke run use fits; a wider one
     # raises before any launch
     for m, scheme, drift in ((256, "tsc", 3), (512, "tsc", 3),
@@ -432,3 +448,28 @@ def test_deposit_smem_reckoning():
     assert tiled_pm._deposit_smem(g) > tiled_pm._SMEM_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         tiled_pm._check_deposit_smem(g, 504, "tsc", 3)
+    # the kernel sorts and keeps 16-bit bin keys: a window a block holds
+    # has fewer bins than that (the longest z lines are NGP's)
+    for m in range(8, 8401, 8):
+        g = tiled_pm._geometry(m, "ngp", 0)
+        if tiled_pm._deposit_smem(g) <= tiled_pm._SMEM_LIMIT:
+            assert tiled_pm._deposit_bins(g) < 1 << 16
+
+
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("drift", [0, 1, 2, 3])
+def test_deposit_fits_every_geometry_reached(scheme, drift):
+    """Every deposit geometry the configurations, the tests and
+    chip_smoke.py reach fits a block's shared memory and the kernel's
+    16-bit bin keys: m = 16 ... 512, tiles spanning the z line (nbz = 1)
+    and z-blocked (the 128-cell rule from 512^3 up, and the 8- and
+    16-cell blocks the tests force), the whole grid and the thinnest
+    slab."""
+    w = tiled_pm._WIDTH[scheme]
+    for m in (16, 32, 64, 128, 256, 512):
+        for zbs in (None, 8, 16):
+            for n_planes in (None, max(w - 1 + drift, 1)):
+                g = tiled_pm._geometry(m, scheme, drift, zbs, n_planes)
+                assert tiled_pm._deposit_smem(g) <= tiled_pm._SMEM_LIMIT
+                assert tiled_pm._deposit_bins(g) < 1 << 16
+                tiled_pm._check_deposit_smem(g, m, scheme, drift)

@@ -18,7 +18,11 @@ steps, each figure a traced step:
 - ``outside``: the device-trace readings the span readings must not fall
   under (the CUB sort kernels, ``deposit_tiles``, ``gather_march``);
 - ``launches``: the program's kernel launches (``stencil.LAUNCHES``,
-  ``tiled_pm.LAUNCHES``) a traced step, to hold against the counters.
+  ``tiled_pm.LAUNCHES``) a traced step, to hold against the counters;
+- ``counters``: the program's counters a traced step, among them the
+  deposit kernel's ``deposit_chunks`` (512-particle chunks summed) and
+  ``deposit_chunks_unbalanced`` (those in which one thread's adds
+  exceeded 4 times the chunk's mean a thread).
 
 Needs a CUDA card, as the benchmark does.
 """
