@@ -8,7 +8,9 @@ face-gradient field and one roll:
     out = sum_a (1/h) * [ roll(nu_A * gA_a, -1, a) - nu_A * gA_a ]
 
 Interpolating-function families: simple / n / beta / gamma / delta. The
-float32 constants are the JAX module's.
+float32 constants are the JAX module's. On a face where the gradient is
+exactly 0 the flux is its limit, 0, where the JAX module's is not a
+number (nu(0) is infinite).
 """
 
 from __future__ import annotations
@@ -90,6 +92,7 @@ def rhs(potential: torch.Tensor, g0, mond_function: str,
         g_t1 = inv4h * (D[t1] + torch.roll(D[t1], 1, a))
         g_t2 = inv4h * (D[t2] + torch.roll(D[t2], 1, a))
         norm = torch.sqrt(g_a * g_a + g_t1 * g_t1 + g_t2 * g_t2)
-        flux = nu_fn(norm * inv_g0, alpha) * g_a
+        # nu(0) is infinite; nu g -> 0 as |g| -> 0 (as sqrt(g0 |g|))
+        flux = torch.where(norm > 0, nu_fn(norm * inv_g0, alpha) * g_a, 0.0)
         out = out + invh * (torch.roll(flux, -1, a) - flux)
     return out

@@ -310,18 +310,19 @@ def _additional_field(cfg: SolverConfig, density, u, dyn: DynScalars,
                       first_call: bool):
     """The extra field of a modified theory: the f(R) scalaron; for MOND,
     the Newtonian potential (multigrid from the previous u, or the exact
-    7-point FFT solve)."""
+    7-point FFT solve), in the span ``mond.newton``."""
     if cfg.theory == "fr":
         return _scalaron(cfg, density, u, dyn, first_call)
     if cfg.theory != "mond":
         return u
-    rhs_newton = _newton_rhs(density, dyn)
-    if cfg.linear_newton_solver == "multigrid":
-        if first_call:
-            u = laplacian.initialise_potential(rhs_newton)
-        return _multigrid_solve(cfg, rhs_newton, u, dyn)
-    return fourier.irfft3(
-        fourier.inverse_laplacian_7pt(fourier.rfft3(rhs_newton)))
+    with profiling.span("mond.newton"):
+        rhs_newton = _newton_rhs(density, dyn)
+        if cfg.linear_newton_solver == "multigrid":
+            if first_call:
+                u = laplacian.initialise_potential(rhs_newton)
+            return _multigrid_solve(cfg, rhs_newton, u, dyn)
+        return fourier.irfft3(
+            fourier.inverse_laplacian_7pt(fourier.rfft3(rhs_newton)))
 
 
 def _solve_fields(cfg: SolverConfig, first_call: bool, save_pk: bool,
@@ -329,7 +330,9 @@ def _solve_fields(cfg: SolverConfig, first_call: bool, save_pk: bool,
                   leading: bool = False):
     """Force mesh from the normalised density grid; returns
     (force, potential, u, pk). ``leading=True`` lays the force out
-    component-leading, (3, M, M, M), as the tiled gather reads it."""
+    component-leading, (3, M, M, M), as the tiled gather reads it. MOND's
+    QUMOND source and its Poisson solve take the spans ``mond.source``
+    and ``mond.potential`` inside ``pm.solve``."""
     pk = None
     if save_pk:
         with profiling.span("pm.power_spectrum"):
@@ -339,8 +342,9 @@ def _solve_fields(cfg: SolverConfig, first_call: bool, save_pk: bool,
     with profiling.span("pm.solve"):
         u = _additional_field(cfg, density, u, dyn, first_call)
         if cfg.theory == "mond":
-            rhs = mond.rhs(u, dyn.mond_g0, cfg.mond_function,
-                           cfg.mond_alpha)
+            with profiling.span("mond.source"):
+                rhs = mond.rhs(u, dyn.mond_g0, cfg.mond_function,
+                               cfg.mond_alpha)
         else:
             rhs = _newton_rhs(density, dyn)
         del density
@@ -348,6 +352,10 @@ def _solve_fields(cfg: SolverConfig, first_call: bool, save_pk: bool,
             force = _fft_force(cfg, rhs)
             if leading:
                 force = force.movedim(-1, 0).contiguous()
+        elif cfg.theory == "mond":
+            with profiling.span("mond.potential"):
+                potential = _linear_solve(cfg, rhs, potential, dyn,
+                                          first_call)
         else:
             potential = _linear_solve(cfg, rhs, potential, dyn, first_call)
     order = cfg.gradient_stencil_order

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Scalaron faults planted in the checked step of an f(R) cell.
+"""Faults planted in the checked step of an f(R) or QUMOND cell.
 
     python3 tools/scalaron_faults.py --workload fr2tsc512.lazy --seed 7 \\
         [--z 10,1,0] [--device cpu --tiny]
@@ -8,7 +8,7 @@ Sets the cell up as ``benchmark/cell.py`` does, runs on to each output of
 ``--z`` and keeps the state before the step that reaches it. That step is
 then run again with one fault planted in the program at a time, and
 clean last, and each run is judged by the cell's check against its
-limits. One JSON line a run (``FAULT``):
+limits. One JSON line a run (``FAULT``). The f(R) scalaron's faults:
 
 - ``n1_root``: the FAS of n = 2's quartic run with the cubic's operator
   and roots (n = 1's);
@@ -17,6 +17,14 @@ limits. One JSON line a run (``FAULT``):
   f2, q and c^2 / 2 all move; at a = 1 it changes nothing);
 - ``u_unchanged``: the scalaron solve returns the u it starts from, the
   previous step's.
+
+QUMOND's (``mond_function = simple``):
+
+- ``nu_one``: nu = 1 on every face, which is Newton's source;
+- ``no_tangential``: the face's |g| from its normal component alone, the
+  two tangential ones dropped;
+- ``g0_exponent``: g0 scaled by a^exponent in place of a^(1 + exponent)
+  (at a = 1 it changes nothing).
 
 ``--tiny`` runs 16^3 particles in a 64 Mpc/h box, for the CPU.
 """
@@ -34,13 +42,35 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT / "benchmark"), str(ROOT)]
 
 
-def _faults():
+def _faults(theory: str):
     import numpy as np
+    import torch
 
     from pysco_tpu_torch import solver
-    from pysco_tpu_torch.models import multigrid
+    from pysco_tpu_torch.models import mond, multigrid
 
     dyn = solver.compute_dynamics
+    if theory == "mond":
+        def g0_exponent(p):
+            return dyn({**p, "mond_scale_factor_exponent": float(
+                p["mond_scale_factor_exponent"]) - 1.0})
+
+        def no_tangential(phi, g0, mond_function, alpha):
+            n = phi.shape[-1]
+            out = torch.zeros_like(phi)
+            for a in range(3):
+                g_a = mond._f32(n) * (phi - torch.roll(phi, 1, a))
+                flux = torch.where(
+                    g_a != 0, mond.nu_simple(torch.abs(g_a) / g0) * g_a, 0.0)
+                out = out + mond._f32(n) * (torch.roll(flux, -1, a) - flux)
+            return out
+
+        return {
+            "nu_one": (mond, "nu_simple", torch.ones_like),
+            "no_tangential": (mond, "rhs", no_tangential),
+            "g0_exponent": (solver, "compute_dynamics", g0_exponent),
+            "clean": None,
+        }
 
     def half_c2_x2(p):
         d = dyn(p)
@@ -91,7 +121,7 @@ def main(argv=None) -> int:
     param["z_out"] = list(param["z_out"])
     ref = check.reference_for(w["config"], config, param, here)
     sim, held, _ = cell._set_up(param, traffic, args.seed, dev, base)
-    faults = _faults()
+    faults = _faults(str(param["theory"]).casefold())
 
     def checked(name, z):
         sim.restore()
