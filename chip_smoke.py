@@ -34,7 +34,10 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    (cells on every branch of the closed form, a scalaron-like state), its
    float64 instructions counted branch by branch in its SASS, and its
    times at 256^3 and 512^3 beside its byte and float64 bounds and the
-   twin's; the deposit's device time split between its kernel and the torch zeroing and fold; the slab call
+   twin's; the QUMOND source kernel (no TPU kernel) at 512^3 on a smooth
+   potential and on phi_N at z = 0 of a seeded ``mond_tsc_mg_512`` run,
+   bitwise its plain form, its time beside its bound and the plain
+   form's; the deposit's device time split between its kernel and the torch zeroing and fold; the slab call
    forms of the deposit and the gather (``deposit_slab``,
    ``gather_vec_slab``) at ``plane0 != 0`` on 128^3, 256^3 and 512^3
    (z-blocked), CIC and TSC, drift 0-2, a quarter of the grid and the
@@ -67,7 +70,8 @@ Phases (any failure exits non-zero, and nothing is carried past it):
    2, snapshots and P(k); all six kernels must launch on every step; the
    median step time, the V-cycles per solve and the multigrid
    components' times at 256^3;
-8. QUMOND: multigrid at 128^3 for a few steps;
+8. QUMOND: multigrid at 128^3 for a few steps, the source kernel
+   launched on every step;
 9. f(R) e2e: the ``fr_n1`` and ``fr_n2`` rows of ``tests/test_e2e.py``
    (16^3) twice on the card and once on the CPU: bitwise-equal card
    reruns, P(k) within 1e-4 of the CPU;
@@ -184,10 +188,12 @@ RESIDUAL_KINDS = (("linear", None), ("laplacian", None),
                   ("quartic", -0.27))
 # kernels that replace no TPU kernel: the f(R) n = 1 and n = 2 sweeps with
 # the float64 closed-form roots (the JAX package takes those roots in jnp)
+# and the QUMOND source (the JAX package computes it in jnp)
 EXTRA_KERNELS = {
     "scalaron_exact_half_sweep": "pysco_tpu_torch/csrc/scalaron_sweep.cu",
     "scalaron_quartic_exact_half_sweep":
         "pysco_tpu_torch/csrc/scalaron_sweep.cu",
+    "mond_source": "pysco_tpu_torch/csrc/mond_source.cu",
 }
 # the H100 SXM's published peaks: HBM bytes/s
 # and float32 operations/s outside the tensor cores
@@ -630,11 +636,13 @@ def phase_kernels(torch):
     return err, times[("cic", 0)], meta
 
 
-def _evolved_state(torch, seed: int = 20201):
-    """Column positions at z = 0 of a seeded run of the benchmark's
-    ``newton_fft_cic_512`` configuration at its ``lazy`` cadence
+def _evolved_state(torch, seed: int = 20201,
+                   config_name: str = "newton_fft_cic_512"):
+    """A seeded run of a benchmark configuration (``newton_fft_cic_512``
+    unless named) at its ``lazy`` cadence carried to z = 0
     (``benchmark/cell.py``'s set-up, then ``benchmark/loop.py`` to the last
-    output); returns them and the steps taken."""
+    output); returns the finished ``loop.Simulation`` and the steps
+    taken."""
     from pathlib import Path
 
     here = Path(REPO) / "benchmark"
@@ -642,7 +650,7 @@ def _evolved_state(torch, seed: int = 20201):
         sys.path.insert(0, str(here))
     import cell
 
-    config = cell.load_json(here / "configs" / "newton_fft_cic_512.json")
+    config = cell.load_json(here / "configs" / f"{config_name}.json")
     traffic = cell.load_json(here / "traffic" / "lazy.json")
     base = tempfile.mkdtemp(prefix="pysco_states_")
     try:
@@ -653,11 +661,9 @@ def _evolved_state(torch, seed: int = 20201):
         while not sim.finished:
             sim.step()
             steps += 1
-        pos = sim.position
-        del sim
     finally:
         shutil.rmtree(base, ignore_errors=True)
-    return pos, steps
+    return sim, steps
 
 
 def _tile_redrawn(torch, tp, ps, ts, m, scheme, gen):
@@ -770,7 +776,9 @@ def phase_deposit_states(torch, np, before=None):
     gen = torch.Generator(device="cuda")
     gen.manual_seed(20)
     old = _before_lib(before) if before else None
-    z0, steps = _evolved_state(torch)
+    sim, steps = _evolved_state(torch)
+    z0 = sim.position
+    del sim
     log(f"[3 states] z = 0 state of newton_fft_cic_512 (lazy cadence) in "
         f"{steps} steps, {time.perf_counter() - t0:.1f} s")
     uni, _ = tp.to_columns(torch.rand((n, 3), generator=gen, device="cuda"),
@@ -1460,6 +1468,58 @@ def phase_quartic_exact_kernel(torch, np, st):
     return (*out, worst)
 
 
+def phase_mond_kernel(torch, np, st):
+    """The QUMOND source kernel (``csrc/mond_source.cu``; no TPU kernel) at
+    512^3 on a smooth random potential (g0 the median normal |g|) and on
+    phi_N at z = 0 of a seeded ``mond_tsc_mg_512`` run
+    (:func:`_evolved_state`): bitwise its plain form (the simple nu), its
+    time (CUDA events) beside its bound (8 n^3 bytes: phi in, the source
+    out) and the plain form's. Returns the smooth potential's (ms, plain
+    ms, bound, max |kernel - plain|)."""
+    from pysco_tpu_torch import solver
+    from pysco_tpu_torch.models import mond
+
+    t0 = time.perf_counter()
+    n = 512
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2323)
+    w = torch.randn((n, n, n), generator=gen, dtype=torch.float64,
+                    device="cuda")
+    k = torch.fft.fftfreq(n, dtype=torch.float64, device="cuda") * n
+    k2 = k[:, None, None] ** 2 + k[None, :, None] ** 2 + k[None, None, :] ** 2
+    k2[0, 0, 0] = 1.0
+    smooth = torch.fft.ifftn(torch.fft.fftn(w) / k2 ** 1.25).real
+    del w, k2
+    smooth = (smooth / smooth.abs().max()).float()
+    g = (n * (smooth - torch.roll(smooth, 1, 2))).abs()
+    g0_smooth = float(np.float32(float(g.flatten()[::64].median())))
+    del g
+    sim, steps = _evolved_state(torch, 20231, "mond_tsc_mg_512")
+    late, g0_late = sim.u, solver.compute_dynamics(sim.param).mond_g0
+    del sim
+    log(f"[3 mond] phi_N at z = 0 of mond_tsc_mg_512 (lazy cadence) in "
+        f"{steps} steps, {time.perf_counter() - t0:.1f} s")
+    bnd = bound(8 * n ** 3, 0)
+    out = None
+    for name, phi, g0 in (("smooth", smooth, g0_smooth),
+                          ("z = 0 phi_N", late, g0_late)):
+        want = mond.rhs_plain(phi, g0, "simple", 1.0)
+        got = mond.rhs(phi, g0, "simple", 1.0)
+        err = float((got - want).abs().max())
+        check(torch.equal(got, want), f"mond_source on {name}: not bitwise "
+              f"its plain form (max |diff| {err:.3e})")
+        del got, want
+        ms = time_ms(torch, lambda: mond.rhs(phi, g0, "simple", 1.0), 20)
+        plain_ms = time_ms(
+            torch, lambda: mond.rhs_plain(phi, g0, "simple", 1.0), 3)
+        log(f"[3 mond] 512^3 {name} (g0 {g0:.6g}): kernel {ms:.4f} ms, "
+            f"bound {bnd[0]:.4f} ms ({bnd[1]}; {100 * bnd[0] / ms:.2f}% of "
+            f"it), plain form {plain_ms:.3f} ms; bitwise the plain form")
+        out = out or (ms, plain_ms, bnd, err)
+    log(f"[3 mond] phase in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _norm2_check(torch, st, x, b, rhs):
     """residual_norm2 against its twin for the five kinds with and without
     rhs: within 5e-6 of the twin's sum (the kernel adds float32 squares
@@ -1752,7 +1812,8 @@ def phase_stencil_kernels(torch, np):
     for name, phase in (("scalaron_exact_half_sweep",
                          phase_exact_root_kernel),
                         ("scalaron_quartic_exact_half_sweep",
-                         phase_quartic_exact_kernel)):
+                         phase_quartic_exact_kernel),
+                        ("mond_source", phase_mond_kernel)):
         times[name], times[f"{name}_plain"], bnd, err[name] = phase(
             torch, np, st)
         meta[name] = {"bound": bnd, "library_ms": None}
@@ -2079,17 +2140,21 @@ def phase_mg_main_path(torch, np, tmp):
 
 
 def phase_mond(torch, np, tmp):
+    """Returns the QUMOND source kernel's launches a step."""
     n = 128
+    names = POISSON_KERNELS + ("mond_source",)
     recs, _, stats, base = _drive(
         torch, tmp, "8 mond", {"theory": "mond", "boxlen": 250.0,
                                "ncoarse": 7, "npart": n ** 3,
                                "z_out": "[30]", "mass_scheme": "TSC",
                                "linear_newton_solver": "multigrid"},
-        POISSON_KERNELS)
+        names)
     check(len(recs) >= 3, f"only {len(recs)} QUMOND steps")
     log(f"[8 mond] V-cycles per solve {stats['cycles'] / stats['solves']:.2f}"
         f" ({stats['solves']} solves: two per force evaluation)")
     _check_outputs(torch, np, base, n, "tsc", "8 mond")
+    return ((recs[-1].launches["mond_source"] - recs[0].launches["mond_source"])
+            / (len(recs) - 1))
 
 
 def _fr_components(torch, np, pos, vel, param, n, scheme, ncoarse):
@@ -3083,13 +3148,14 @@ def main() -> int:
                                ("mond_multigrid", {"theory": "mond"})),
                      "6 mg e2e")
         phase_mg_main_path(torch, np, tmp)
-        phase_mond(torch, np, tmp)
+        mond_launches = phase_mond(torch, np, tmp)
         phase_mg_e2e(np, tmp, (("fr_n1", {"theory": "fr", "fR_n": 1}),
                                ("fr_n2", {"theory": "fr", "fR_n": 2})),
                      "9 fr e2e")
         launches, fr_ref = phase_fr_main_path(torch, np, tmp)
         launches["scalaron_quartic_exact_half_sweep"] = phase_fr_n2(
             torch, np, tmp)
+        launches["mond_source"] = mond_launches
         phase_extras(torch, np, tmp)
         phase_parallel(torch, np, tmp, main_base, main_stale, main_sorted)
         slab_launches = phase_slab_mg(torch, np, tmp, fr_ref)

@@ -11,12 +11,21 @@ Interpolating-function families: simple / n / beta / gamma / delta. The
 float32 constants are the JAX module's. On a face where the gradient is
 exactly 0 the flux is its limit, 0, where the JAX module's is not a
 number (nu(0) is infinite).
+
+:func:`rhs` takes the plain PyTorch form, :func:`rhs_plain`, for a CPU
+tensor and launches the hand-written kernel ``csrc/mond_source.cu`` (one
+pass: phi read once, the source written once) for a CUDA tensor; there
+is no fallback from one to the other. The kernel is bitwise the plain
+form for the simple family; the others may differ by the ulps of
+``powf``/``expf``/``rsqrtf`` against torch's.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..ops import stencil
 
 F32 = np.float32
 
@@ -64,23 +73,61 @@ _NU = {
 }
 
 
-def rhs(potential: torch.Tensor, g0, mond_function: str,
-        alpha: float) -> torch.Tensor:
-    """QUMOND right-hand side from the Newtonian potential; ``g0`` is the
-    acceleration constant in box units, already scaled by aexp
-    (``solver.compute_dynamics``)."""
+#: the families in the kernel's numbering (csrc/mond_source.cu Family)
+_FAMILIES = ("simple", "n", "beta", "gamma", "delta")
+
+
+def _family(mond_function: str) -> str:
     mond_function = mond_function.casefold()
     if mond_function not in _NU:
         raise NotImplementedError(
             f"mond_function {mond_function!r}, should be simple, n, beta, "
             "gamma or delta"
         )
-    nu_fn = _NU[mond_function]
+    return mond_function
+
+
+def _inv_g0(g0) -> float:
+    return float(F32(1.0) / F32(g0))
+
+
+def rhs(potential: torch.Tensor, g0, mond_function: str,
+        alpha: float) -> torch.Tensor:
+    """QUMOND right-hand side from the Newtonian potential; ``g0`` is the
+    acceleration constant in box units, already scaled by aexp
+    (``solver.compute_dynamics``). Periodic on each axis by its own
+    length, 1/h from the last axis: the slab path passes (P + 4, m, m)
+    extended slabs."""
+    family = _family(mond_function)
+    if not stencil._on_cuda("mond.rhs", potential,
+                            g0 if isinstance(g0, torch.Tensor) else None):
+        return rhs_plain(potential, g0, family, alpha)
+    phi = potential
+    stencil._check("mond.rhs", phi, phi.shape)
+    if phi.dim() != 3 or min(phi.shape) < 3:
+        raise ValueError("mond.rhs: expected a 3-D grid with every axis at "
+                         f"least 3, got shape {tuple(phi.shape)}")
+    nz, ny, nx = phi.shape
+    out = torch.empty_like(phi)
+    err = stencil._kernels().pysco_mond_source(
+        phi.data_ptr(), out.data_ptr(), nz, ny, nx, _f32(nx),
+        _f32(0.25 * nx), _inv_g0(float(g0)), _FAMILIES.index(family),
+        float(alpha), stencil._stream(out))
+    stencil._raise_on(err, "mond_source")
+    stencil.LAUNCHES["mond_source"] += 1
+    return out
+
+
+def rhs_plain(potential: torch.Tensor, g0, mond_function: str,
+              alpha: float) -> torch.Tensor:
+    """The plain PyTorch form of :func:`rhs` (its CPU path, and the
+    kernel's yardstick on the card)."""
+    nu_fn = _NU[_family(mond_function)]
     phi = potential
     n = phi.shape[-1]
     invh = _f32(n)
     inv4h = _f32(0.25 * n)
-    inv_g0 = float(F32(1.0) / F32(g0))
+    inv_g0 = _inv_g0(g0)
 
     # centred tangential differences, shared across axes
     D = [torch.roll(phi, -1, a) - torch.roll(phi, 1, a) for a in range(3)]

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "build"
 SOURCES = ("deposit.cu", "gather.cu", "half_sweep.cu", "scalaron_sweep.cu",
-           "residual.cu", "prolongation.cu")
+           "residual.cu", "prolongation.cu", "mond_source.cu")
 HEADERS = ("tiled_pm.cuh", "stencil.cuh")
 # --fmad=false: every product and sum rounds as its own float32 operation,
 # as in the plain PyTorch twins the kernels are checked against

@@ -11,7 +11,9 @@ Each kernel is hand-written CUDA (``csrc/half_sweep.cu``,
 twin beside it of the same signature (``*_plain``). A wrapper takes the
 twin for a CPU tensor and launches the kernel for a CUDA tensor, at every
 grid size (the multigrid levels go down to 4^3); there is no fallback
-from one to the other. ``LAUNCHES`` counts kernel launches.
+from one to the other. ``LAUNCHES`` counts kernel launches, those of
+the QUMOND source kernel (``csrc/mond_source.cu``, wrapped by
+``models/mond.rhs``; its C signature is registered here) among them.
 
 The stencil primitives the twins are written in -- the full-lattice
 ``neighbour_sum`` and the packed red-black ``packed_neighbour_sum`` --
@@ -39,7 +41,7 @@ F64 = torch.float64
 LAUNCHES = {"half_sweep": 0, "scalaron_half_sweep": 0,
             "scalaron_exact_half_sweep": 0,
             "scalaron_quartic_exact_half_sweep": 0, "residual_norm2": 0,
-            "restrict3": 0, "add_prolongation": 0}
+            "restrict3": 0, "add_prolongation": 0, "mond_source": 0}
 
 #: residual kind -> (kernel enum, neighbour power, needs b); the kinds of
 #: pysco_tpu/ops/pallas_stencil.py _KINDS
@@ -318,13 +320,15 @@ def _kernels():
                                                  P, P, P]
     lib.pysco_restrict3.argtypes = [I, P, P, P, I, F, F, F, P, P, P, P]
     lib.pysco_add_prolongation.argtypes = [P, P, P, I, P]
+    lib.pysco_mond_source.argtypes = [P, P, I, I, I, F, F, F, I,
+                                      ctypes.c_double, P]
     for fn in (lib.pysco_half_sweep, lib.pysco_scalaron_half_sweep,
                lib.pysco_scalaron_exact_half_sweep,
                lib.pysco_scalaron_quartic_exact_half_sweep,
                lib.pysco_norm2_blocks,
                lib.pysco_residual_norm2, lib.pysco_norm2_variant_blocks,
                lib.pysco_residual_norm2_variant, lib.pysco_restrict3,
-               lib.pysco_add_prolongation):
+               lib.pysco_add_prolongation, lib.pysco_mond_source):
         fn.restype = I
     return lib
 

@@ -929,12 +929,14 @@ def test_fr_run_reproducible(cuda, tmp_path, monkeypatch, root):
         "fR_root_solver": "newton" if root == "newton" else "exact",
     }
     assert ic_device.supported(param)
-    # the slab mode's call forms and the other roots' sweeps
+    # the slab mode's call forms, the QUMOND source and the other roots'
+    # sweeps
     sweeps = {"newton": "scalaron_half_sweep",
               "exact": "scalaron_exact_half_sweep",
               "exact_n2": "scalaron_quartic_exact_half_sweep"}
     sweep = sweeps[root]
-    idle = {"deposit_slab", "gather_slab"} | set(sweeps.values()) - {sweep}
+    idle = ({"deposit_slab", "gather_slab", "mond_source"}
+            | set(sweeps.values()) - {sweep})
     outs = []
     for tag in ("a", "b"):
         if root != "newton" and tag == "b":

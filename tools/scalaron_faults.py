@@ -20,7 +20,9 @@ limits. One JSON line a run (``FAULT``). The f(R) scalaron's faults:
 
 QUMOND's (``mond_function = simple``):
 
-- ``nu_one``: nu = 1 on every face, which is Newton's source;
+- ``nu_one``: nu = 1 on every face, which is Newton's source (``mond.rhs``
+  replaced by its plain form over nu = 1: on the card the kernel computes
+  nu inside, so patching ``mond.nu_simple`` alone would not reach it);
 - ``no_tangential``: the face's |g| from its normal component alone, the
   two tangential ones dropped;
 - ``g0_exponent``: g0 scaled by a^exponent in place of a^(1 + exponent)
@@ -55,6 +57,14 @@ def _faults(theory: str):
             return dyn({**p, "mond_scale_factor_exponent": float(
                 p["mond_scale_factor_exponent"]) - 1.0})
 
+        def nu_one(phi, g0, mond_function, alpha):
+            old = mond.nu_simple
+            mond.nu_simple = torch.ones_like
+            try:
+                return mond.rhs_plain(phi, g0, mond_function, alpha)
+            finally:
+                mond.nu_simple = old
+
         def no_tangential(phi, g0, mond_function, alpha):
             n = phi.shape[-1]
             out = torch.zeros_like(phi)
@@ -66,7 +76,7 @@ def _faults(theory: str):
             return out
 
         return {
-            "nu_one": (mond, "nu_simple", torch.ones_like),
+            "nu_one": (mond, "rhs", nu_one),
             "no_tangential": (mond, "rhs", no_tangential),
             "g0_exponent": (solver, "compute_dynamics", g0_exponent),
             "clean": None,
