@@ -1185,6 +1185,14 @@ def phase_scalaron_kernel(torch, np, lap, st, n, gen):
                 log(f"[3 stencil] n={n} scalaron_half_sweep power={power} "
                     f"plane={int(plane)} red={int(to_red)}: |k-twin| "
                     f"{e:.2e}, bitwise {int(torch.equal(got, want))}")
+                # the root alone (the slab FAS's) on the same cells
+                p = hb[c] - st._INVSIX * st.packed_neighbour_sum(
+                    st._power(src, power), to_red)
+                root = st.newton_root(dst, p, coef, power)
+                check(torch.equal(root,
+                                  st.newton_root_plain(dst, p, coef,
+                                                       power)[0]),
+                      f"newton_root not bitwise its twin ({tag})")
     return worst
 
 
@@ -2762,8 +2770,8 @@ def phase_slab_mg(torch, np, tmp, fr_ref):
 
     d = 4
     mesh4 = ["cuda:0"] * d
-    stencils = ("half_sweep", "scalaron_half_sweep", "restrict3",
-                "add_prolongation", "residual_norm2")
+    stencils = ("half_sweep", "scalaron_half_sweep", "newton_root",
+                "restrict3", "add_prolongation", "residual_norm2")
     # (a) fr_n1_cic_multigrid_512 in slab mode
     n = 512
     torch.cuda.empty_cache()
@@ -2773,7 +2781,7 @@ def phase_slab_mg(torch, np, tmp, fr_ref):
                 z_out="[20]", mass_scheme="CIC", parallel_mode="slab")
     recs, launches, stats, base = _drive(
         torch, tmp, "14 slab fr", over,
-        SLAB_MG_KERNELS + ("scalaron_half_sweep",), mesh4)
+        SLAB_MG_KERNELS + ("scalaron_half_sweep", "newton_root"), mesh4)
     peak = torch.cuda.max_memory_allocated()
     ic_s = ic_slab.TIMES["generate_lpt_slab"]
     check(ic_s is not None, "the slab run did not build its ICs with ic_slab")
@@ -2802,7 +2810,8 @@ def phase_slab_mg(torch, np, tmp, fr_ref):
         f"{peak / 2 ** 30:.2f} GiB ({fr_ref['peak_gib']:.2f}); P(k) vs "
         f"phase 10 max rel {worst:.2e} (bound 1e-4)")
     log("[14 slab fr] stencil kernel launches per step (the replicated "
-        "coarse levels): " + "; ".join(
+        "coarse levels; newton_root: the slab levels' roots, a shard a "
+        "colour update): " + "; ".join(
             f"step {r.nsteps}: " + ", ".join(
                 f"{k} {r.launches[k] - p.launches[k]}" for k in stencils)
             for p, r in zip(recs, recs[1:])))

@@ -3,7 +3,9 @@
 // (scalaron_sweep_kernel), the float64 closed-form cubic of n = 1
 // (scalaron_exact_sweep_kernel) and the float64 closed-form quartic of
 // n = 2 (scalaron_quartic_exact_sweep_kernel). All three share one
-// blocking (sweep_march).
+// blocking (sweep_march). The guarded Newton root also runs alone, a
+// thread a cell (newton_root_kernel), where the caller forms p itself
+// (the slab FAS).
 //
 // The Newton form replaces pysco_tpu/ops/pallas_stencil.py::
 // scalaron_half_sweep, which streams blocks of x-planes of the (n, n/2, n)
@@ -16,12 +18,27 @@
 //         cubic   (k = 2): f = x (x x + p) + c0,       f' = (3 x) x + p
 //         quartic (k = 3): f = (x2 x2 + p x) + c0,     f' = (4 x2) x + p
 //         f' = |f'| < 1e-12 ? 1e-12 : f';  x = x - f / f'
+//         guarded where the steps leave the root's bracket [0, top], top
+//         = max(2 dst, bracket_top(p, c0)): the first step's f' <= 1e-12
+//         before it is held, or the first or the last iterate negative,
+//         not finite or above top; a guarded cell takes safe_root(p, c0)
+//         instead (float32 Newton steps down from bracket_top)
 //   out = dst + f_relax (x - dst)
 // c0 is one scalar (no FAS rhs: h^2 q) or a plane (h^2 q - rhs), as the
 // caller folds it (models/laplacian.py packed_scalaron_smoothing). Every
 // expression is the twin's (ops/stencil.py scalaron_half_sweep_plain),
 // operand for operand; built with --fmad=false and IEEE division, the two
-// agree bitwise.
+// agree bitwise. Deep screening, where the root nears 0 and a cell's seed
+// is left over from a larger u, makes seeds below the root with f' near 0
+// or below: an unguarded step from there flies far above the root, which
+// three steps cannot undo, or below 0, and the FAS V-cycle then diverges
+// (f(R) at 512^3 in 500 Mpc/h broke at z ~ 4 so). A guarded cell is rare
+// (16 with CIC and 5 with TSC for n = 1, 51 for n = 2, of some 9 million
+// cell updates in 32^3 runs from z = 49 to 0 in 32 Mpc/h), and a thread
+// that met one adds its count to counts[0] when the caller passes the
+// profiler's counters. The guard
+// costs a compare a step, the first iterate kept, and bracket_top's square
+// roots only where an iterate passes twice the seed.
 //
 // The exact form replaces no TPU kernel: the JAX package takes these roots
 // in plain jnp (models/cubic.py solution_cubic_equation), and so did the
@@ -114,6 +131,9 @@ using pysco::power_of;
 
 // float32(1e-12) rounded from the double, as numpy's float32(1e-12)
 constexpr float kNewtonEps = static_cast<float>(1e-12);
+// the Newton steps of a guarded cell's root, at most (the twin's
+// SAFE_ROOT_STEPS)
+constexpr int kSafeRootSteps = 64;
 
 constexpr int kVec = 4;                    // z cells of a thread: one float4
 constexpr int kTileZ = 128;                // z cells of a tile
@@ -148,22 +168,58 @@ __device__ __forceinline__ float quotient(float f, float fp) {
   return f / fp;
 }
 
+// f and f' of u^(Power+1) + p u + c0 at x, in the twin's order
+template <int Power>
+__device__ __forceinline__ void poly(float x, float p, float c0, float& f,
+                                     float& fp) {
+  if (Power == 2) {
+    f = x * (x * x + p) + c0;
+    fp = (3.0f * x) * x + p;
+  } else {
+    const float x2 = x * x;
+    f = (x2 * x2 + p * x) + c0;
+    fp = (4.0f * x2) * x + p;
+  }
+}
+
+// An upper bound of every positive root of u^(Power+1) + p u + c0 = 0 from
+// square roots alone (the twin's _bracket_top): A = max(-p, 0), C = |c0|;
+// A^(1/2) + C^(1/3) for the cubic, A^(1/3) + C^(1/4) for the quartic, each
+// cube root bounded by the square root above 1 and the fourth root below.
+template <int Power>
+__device__ __forceinline__ float bracket_top(float p, float c0) {
+  const float a = -p > 0.0f ? -p : 0.0f;
+  const float c = fabsf(c0);
+  if (Power == 2) return sqrtf(a) + (c <= 1.0f ? sqrtf(sqrtf(c)) : sqrtf(c));
+  return (a <= 1.0f ? sqrtf(sqrtf(a)) : sqrtf(a)) + sqrtf(sqrtf(c));
+}
+
+// iters float32 Newton steps from the seed x. guarded is set where the
+// steps leave the root's bracket [0, top], top = max(2 x, bracket_top):
+// the first step meets f' at or below kNewtonEps (NaN included), or the
+// first or the last iterate is negative, not finite or above top (for c0 <
+// 0 and a seed above 0 the first step decides: the steps after it fall
+// monotonically). Where it is not set the steps are those of the
+// unguarded polish, bit for bit. bracket_top is taken only where an
+// iterate passes 2 x: a converging cell never needs it.
 template <int Power>
 __device__ __forceinline__ float newton_root(float x, float p, float c0,
-                                             int iters) {
+                                             int iters, bool& guarded) {
+  const float seed = x;
+  float first = x;
+  bool bad = false;
   for (int it = 0; it < iters; ++it) {
     float f, fp;
-    if (Power == 2) {
-      f = x * (x * x + p) + c0;
-      fp = (3.0f * x) * x + p;
-    } else {
-      const float x2 = x * x;
-      f = (x2 * x2 + p * x) + c0;
-      fp = (4.0f * x2) * x + p;
-    }
+    poly<Power>(x, p, c0, f, fp);
+    if (it == 0) bad = !(fp > kNewtonEps);
     fp = fabsf(fp) < kNewtonEps ? kNewtonEps : fp;
     x = x - quotient(f, fp);
+    if (it == 0) first = x;
   }
+  const float most = fmaxf(first, x);
+  guarded = iters > 0 &&
+            (bad || !(fminf(first, x) >= 0.0f) || x != x ||
+             (most > 2.0f * seed && most > bracket_top<Power>(p, c0)));
   return x;
 }
 
@@ -258,6 +314,28 @@ __device__ __forceinline__ double quartic_root(double p, double c) {
   if (!(q_d0oq > 0.0)) return quartic_fallback(c);
   return p > 0.0 ? quartic_tail<true>(p, q_d0oq)
                  : quartic_tail<false>(p, q_d0oq);
+}
+
+// The root a guarded cell takes (the twin's safe_root): float32 Newton
+// steps from bracket_top, which lies above every positive root, while a
+// step lowers u (at most kSafeRootSteps). The polynomial is convex for u >
+// 0, so the steps fall monotonically onto its largest positive root: for
+// c0 < 0 the only one, PySCo's. Where c0 >= 0 (a coarse FAS level's rhs
+// above h^2 q) and no positive root exists, they stop where u no longer
+// falls. Inline and in float32: a call, or float64 registers, in the
+// cell's loop would cost every cell (spills at 64 registers).
+template <int Power>
+__device__ __forceinline__ float safe_root(float p, float c0) {
+  float x = bracket_top<Power>(p, c0);
+  for (int it = 0; it < kSafeRootSteps; ++it) {
+    float f, fp;
+    poly<Power>(x, p, c0, f, fp);
+    fp = fabsf(fp) < kNewtonEps ? kNewtonEps : fp;
+    const float next = x - quotient(f, fp);
+    if (!(next < x)) break;
+    x = next;
+  }
+  return x;
 }
 
 __device__ __forceinline__ float4 load4(const float* p) {
@@ -397,14 +475,25 @@ scalaron_sweep_kernel(const float* __restrict__ src, const float* dst,
                       const float* __restrict__ hb,
                       const float* __restrict__ coef_plane, float coef,
                       float* out, int n, int run, int to_red, float f_relax,
-                      int newton_iters) {
+                      int newton_iters,
+                      unsigned long long* __restrict__ counts) {
+  unsigned int guarded_cells = 0;
   sweep_march<Power, CoefPlane>(
       src, dst, hb, coef_plane, out, n, run, to_red,
       [&](float old, float p, float cv) {
         const float c0 = CoefPlane ? cv : coef;
-        const float x = newton_root<Power>(old, p, c0, newton_iters);
+        bool guarded;
+        float x = newton_root<Power>(old, p, c0, newton_iters, guarded);
+        if (guarded) {
+          x = safe_root<Power>(p, c0);
+          ++guarded_cells;
+        }
         return old + f_relax * (x - old);
       });
+  // a guarded cell is rare: one atomic a thread that met any
+  if (counts != nullptr && guarded_cells != 0) {
+    atomicAdd(&counts[0], static_cast<unsigned long long>(guarded_cells));
+  }
 }
 
 // The exact form, f(R) n = 1 (k = 2): d1 = d1_q [- 27 rhs].
@@ -467,41 +556,104 @@ Launch launch_shape(int n, int target) {
 template <int Power>
 void launch(const float* src, const float* dst, const float* hb,
             const float* coef_plane, float coef, float* out, int n,
-            int to_red, float f_relax, int newton_iters, cudaStream_t st) {
+            int to_red, float f_relax, int newton_iters,
+            unsigned long long* counts, cudaStream_t st) {
   const Launch l = launch_shape(n, kTargetBlocks);
   if (coef_plane != nullptr) {
     scalaron_sweep_kernel<Power, true><<<l.grid, l.block, 0, st>>>(
         src, dst, hb, coef_plane, coef, out, n, l.run, to_red, f_relax,
-        newton_iters);
+        newton_iters, counts);
   } else {
     scalaron_sweep_kernel<Power, false><<<l.grid, l.block, 0, st>>>(
         src, dst, hb, coef_plane, coef, out, n, l.run, to_red, f_relax,
-        newton_iters);
+        newton_iters, counts);
+  }
+}
+
+// The guarded root alone, a thread a cell over a grid stride: the slab
+// FAS (parallel/slab_mg.py) forms p from its shards' halos in torch and
+// takes the root here, with no neighbour sum and no relaxation.
+template <int Power, bool CoefPlane>
+__global__ void __launch_bounds__(256)
+newton_root_kernel(const float* __restrict__ x, const float* __restrict__ p,
+                   const float* __restrict__ coef_plane, float coef,
+                   float* out, long long cells, int newton_iters) {
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < cells; i += stride) {
+    const float pv = p[i];
+    const float c0 = CoefPlane ? coef_plane[i] : coef;
+    bool guarded;
+    const float r = newton_root<Power>(x[i], pv, c0, newton_iters, guarded);
+    out[i] = guarded ? safe_root<Power>(pv, c0) : r;
+  }
+}
+
+template <int Power>
+void launch_root(const float* x, const float* p, const float* coef_plane,
+                 float coef, float* out, long long cells, int newton_iters,
+                 cudaStream_t st) {
+  const int block = 256;
+  const long long want = (cells + block - 1) / block;
+  const int grid = static_cast<int>(want < 132 * 16 ? want : 132 * 16);
+  if (coef_plane != nullptr) {
+    newton_root_kernel<Power, true><<<grid, block, 0, st>>>(
+        x, p, coef_plane, coef, out, cells, newton_iters);
+  } else {
+    newton_root_kernel<Power, false><<<grid, block, 0, st>>>(
+        x, p, coef_plane, coef, out, cells, newton_iters);
   }
 }
 
 }  // namespace
 
+// The guarded Newton root of u^(power+1) + p u + c0 = 0 for each of cells
+// float32 cells, from the seed x: newton_iters steps, or the safe root
+// where they leave the root's bracket, as the sweep takes it (the twin:
+// ops/stencil.py newton_root_plain). c0 is the plane coef_plane where it
+// is not null, else the scalar coef. out may be x. Returns the CUDA error
+// of the launch (0 on success), or cudaErrorInvalidValue for another
+// power.
+extern "C" int pysco_newton_root(const float* x, const float* p,
+                                 const float* coef_plane, float coef,
+                                 float* out, long long cells, int power,
+                                 int newton_iters, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (cells <= 0) return 0;
+  if (power == 2) {
+    launch_root<2>(x, p, coef_plane, coef, out, cells, newton_iters, st);
+  } else if (power == 3) {
+    launch_root<3>(x, p, coef_plane, coef, out, cells, newton_iters, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Update the to_red colour (else black) of the (n, n/2, n) half-lattice
 // dst from the other colour src, for the neighbour power 2 (f(R) n = 1) or
 // 3 (n = 2). coef_plane may be null, and then the scalar coef is c0. out
 // may be dst. n must be a multiple of 4 and every array 16-byte aligned.
-// Returns the CUDA error of the launch (0 on success), or
-// cudaErrorInvalidValue for another power or n.
+// counts, when not null, gains the cells whose Newton steps left the root's
+// bracket and took the safe root (counts[0]). Returns the CUDA error of the
+// launch (0 on success), or cudaErrorInvalidValue for another power or n.
 extern "C" int pysco_scalaron_half_sweep(const float* src, const float* dst,
                                          const float* hb,
                                          const float* coef_plane, float coef,
                                          float* out, int n, int to_red,
                                          float f_relax, int power,
-                                         int newton_iters, void* stream) {
+                                         int newton_iters,
+                                         unsigned long long* counts,
+                                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n < kVec || n % kVec) return static_cast<int>(cudaErrorInvalidValue);
   if (power == 2) {
     launch<2>(src, dst, hb, coef_plane, coef, out, n, to_red, f_relax,
-              newton_iters, st);
+              newton_iters, counts, st);
   } else if (power == 3) {
     launch<3>(src, dst, hb, coef_plane, coef, out, n, to_red, f_relax,
-              newton_iters, st);
+              newton_iters, counts, st);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -19,8 +19,6 @@ sweeps (:func:`gauss_seidel`, ``cubic.gauss_seidel``,
 
 from __future__ import annotations
 
-from contextlib import nullcontext
-
 import numpy as np
 import torch
 
@@ -152,18 +150,25 @@ def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
     h^2 q [- rhs]; both fold the rhs plane in themselves. The relaxation
     factor is :data:`F_RELAX`.
 
-    Under a profiler an exact-root call opens the span ``mg.exact_root``
-    around its colour updates (pack and unpack stay outside it) and adds
-    its 2 ``n_smoothing`` colour updates to the counter
-    ``exact_root_sweeps``."""
+    Under a profiler a call opens its root's span around its colour
+    updates (pack and unpack stay outside it): ``mg.exact_root`` or
+    ``mg.newton_root``, with the multigrid level of the ``mg.smooth`` span
+    it opens in (0 on the finest grid) and, in its record, its 2
+    ``n_smoothing`` colour updates under ``exact_root_sweeps`` or
+    ``newton_root_sweeps``. An exact-root call adds them to the step's
+    counter ``exact_root_sweeps`` too. The Newton sweep's guard counts its
+    cells into the device counter ``newton_root_guarded``
+    (:func:`stencil.scalaron_half_sweep`)."""
     n = x.shape[1]
     h2 = 1.0 / (n * n)
     red, black = pack_rb(x)
     hb_r, hb_b = pack_rb(_f32(h2) * b)
     rhs_r, rhs_b = (None, None) if rhs is None else pack_rb(rhs)
+    root_span, sweeps = (("mg.exact_root", "exact_root_sweeps") if exact_root
+                         else ("mg.newton_root", "newton_root_sweeps"))
     if exact_root:
         # the colour updates, for a profiled step
-        profiling.count("exact_root_sweeps", 2 * n_smoothing)
+        profiling.count(sweeps, 2 * n_smoothing)
         if n_power == 2:
             sweep = stencil.scalaron_exact_half_sweep
             coef = 27.0 * h2 * float(q)
@@ -183,7 +188,8 @@ def packed_scalaron_smoothing(x, b, q, n_smoothing: int, rhs,
             return stencil.scalaron_half_sweep(src, dst, hb, coef, to_red,
                                                F_RELAX, n_power)
 
-    with profiling.span("mg.exact_root") if exact_root else nullcontext():
+    with profiling.span(root_span, profiling.open_level(),
+                        {sweeps: 2 * n_smoothing}):
         for _ in range(n_smoothing):
             red = half(black, red, hb_r, coef_r, True)
             black = half(red, black, hb_b, coef_b, False)

@@ -31,6 +31,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .mesh import prolongation, restriction
 
 F32 = torch.float32
@@ -38,7 +39,7 @@ F64 = torch.float64
 
 # kernel launches by the CUDA wrappers (one per wrapper call); the CPU
 # twins do not count
-LAUNCHES = {"half_sweep": 0, "scalaron_half_sweep": 0,
+LAUNCHES = {"half_sweep": 0, "scalaron_half_sweep": 0, "newton_root": 0,
             "scalaron_exact_half_sweep": 0,
             "scalaron_quartic_exact_half_sweep": 0, "residual_norm2": 0,
             "restrict3": 0, "add_prolongation": 0, "mond_source": 0}
@@ -55,6 +56,10 @@ _KINDS = {
 
 _INVSIX = float(np.float32(1.0 / 6.0))
 _NEWTON_EPS = float(np.float32(1e-12))
+#: the Newton steps of the safe root, at most
+SAFE_ROOT_STEPS = 64
+#: the device counter of the Newton sweep: cells its guard took
+NEWTON_COUNTERS = ("newton_root_guarded",)
 _MAX_N = 1024  # the kernels index with 32-bit ints: n^3 < 2^31
 
 
@@ -222,30 +227,111 @@ def half_sweep_plain(src, dst, h2b, to_red: bool, f_relax: float,
     return dst + _f32(f_relax) * (tgt - dst)
 
 
-def newton_root(x, p, c0, n_power: int, iters: int = 3) -> torch.Tensor:
-    """Polish the root of u^(n_power+1) + p u + c0 = 0 by float32 Newton
-    steps from the seed x (the JAX package's ``cubic._newton_root`` for
-    n_power = 2, ``quartic._newton_root`` for 3, in their operand
-    order)."""
-    for _ in range(iters):
-        if n_power == 2:
-            f = x * (x * x + p) + c0
-            fp = 3.0 * x * x + p
-        else:
-            x2 = x * x
-            f = x2 * x2 + p * x + c0
-            fp = 4.0 * x2 * x + p
-        fp = torch.where(torch.abs(fp) < _NEWTON_EPS, _NEWTON_EPS, fp)
-        x = x - f / fp
+def _bracket_top(p, c0, n_power: int) -> torch.Tensor:
+    """An upper bound of every positive root of u^(n_power+1) + p u + c0 =
+    0, in p's precision, from square roots alone (so the kernel computes
+    the same bits): with A = max(-p, 0) and C = |c0| a positive root r has
+    r^(n_power+1) <= A r + C, so r <= A^(1/2) + C^(1/3) for the cubic and
+    r <= A^(1/3) + C^(1/4) for the quartic; a cube root is bounded by the
+    square root above 1 and by the fourth root below."""
+    a = torch.where(-p > 0.0, -p, 0.0)
+    c = torch.abs(torch.as_tensor(c0, dtype=p.dtype, device=p.device))
+    if n_power == 2:
+        return torch.sqrt(a) + torch.where(c <= 1.0, torch.sqrt(torch.sqrt(c)),
+                                           torch.sqrt(c))
+    return (torch.where(a <= 1.0, torch.sqrt(torch.sqrt(a)), torch.sqrt(a))
+            + torch.sqrt(torch.sqrt(c)))
+
+
+def _newton_step(x, p, c0, n_power: int):
+    """f / f' of u^(n_power+1) + p u + c0 at x, f' held at 1e-12 or above
+    in magnitude; also f', unheld."""
+    if n_power == 2:
+        f = x * (x * x + p) + c0
+        fp = 3.0 * x * x + p
+    else:
+        x2 = x * x
+        f = x2 * x2 + p * x + c0
+        fp = 4.0 * x2 * x + p
+    return f / torch.where(torch.abs(fp) < _NEWTON_EPS, _NEWTON_EPS, fp), fp
+
+
+def safe_root(p, c0, n_power: int) -> torch.Tensor:
+    """The root a guarded cell takes, float32, from p and c0 (a float or a
+    tensor of p's shape): Newton steps from :func:`_bracket_top`, which
+    lies above every positive root, while a step lowers u (at most
+    ``SAFE_ROOT_STEPS``). The polynomial is convex for u > 0, so the steps
+    fall monotonically onto its largest positive root: for c0 < 0 the only
+    one, and PySCo's. Where c0 >= 0 (a coarse FAS level's rhs above h^2
+    q) and no positive root exists, they stop where u no longer falls."""
+    c = c0 if isinstance(c0, torch.Tensor) else torch.as_tensor(
+        float(c0), dtype=p.dtype, device=p.device).expand(p.shape)
+    x = _bracket_top(p, c, n_power)
+    live = torch.ones(p.shape, dtype=torch.bool, device=p.device)
+    for _ in range(SAFE_ROOT_STEPS):
+        new = x - _newton_step(x, p, c, n_power)[0]
+        live = live & (new < x)
+        if not bool(live.any()):
+            break
+        x = torch.where(live, new, x)
     return x
+
+
+def newton_root_plain(x, p, c0, n_power: int, iters: int = 3):
+    """Twin of :func:`newton_root`, and the root the sweep's twin takes:
+    the root of u^(n_power+1) + p u + c0 = 0 by float32 Newton steps from
+    the seed x (the JAX package's ``cubic._newton_root`` for n_power = 2,
+    ``quartic._newton_root`` for 3, in their operand order), guarded. A
+    cell whose steps leave the root's bracket [0, top], top = max(2 x,
+    :func:`_bracket_top`), takes :func:`safe_root` instead: where the
+    first step meets f' at or below 1e-12 (NaN included), or the first or
+    the last iterate is negative, not finite or above top. Elsewhere the
+    result is the steps' bit for bit. Returns (root, guarded), ``guarded``
+    the cells that took the safe root (the kernels count them, and return
+    the root alone). The guarded cells are gathered, a host read on a
+    card, where the kernels run instead.
+
+    For c0 < 0 the polynomial is negative at 0 and convex for u > 0, so a
+    step from a seed above the positive root falls monotonically onto it,
+    and one from below lands above it; the first step decides, and the
+    last iterate is tested for the other cases (c0 >= 0 on the coarse
+    levels of FAS, a seed <= 0). Deep screening (the root near 0, the seed
+    left over from a larger u) gives seeds below the root with f' near 0
+    or below: a step from there flies far above the root, where three
+    steps cannot bring it back, or below 0, and the FAS V-cycle diverges
+    from such cells. 2 x in the top lets a converging cell's first step
+    overshoot the root as Newton does, where ``_bracket_top`` is tight (the
+    quartic's at p >= 0)."""
+    seed = first = x
+    guarded = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    for k in range(iters):
+        step, fp = _newton_step(x, p, c0, n_power)
+        x = x - step
+        if k == 0:
+            guarded = ~(fp > _NEWTON_EPS)
+            first = x
+    if iters:
+        top = _bracket_top(p, c0, n_power)
+        top = torch.where(2.0 * seed > top, 2.0 * seed, top)
+        guarded |= (~(torch.minimum(first, x) >= 0.0)
+                    | (torch.maximum(first, x) > top))
+    cells = guarded.nonzero(as_tuple=True)
+    if cells[0].numel():
+        c = (c0[cells] if isinstance(c0, torch.Tensor) and c0.dim()
+             else float(c0))
+        x = x.index_put(cells, safe_root(p[cells], c, n_power))
+    return x, guarded
 
 
 def scalaron_half_sweep_plain(src, dst, hb, coef, to_red: bool,
                               f_relax: float, n_power: int,
-                              newton_iters: int = 3):
-    """Twin of :func:`scalaron_half_sweep`."""
+                              newton_iters: int = 3, counts=None):
+    """Twin of :func:`scalaron_half_sweep`; adds the cells the guard took
+    to ``counts[0]`` where given."""
     p = hb - _INVSIX * packed_neighbour_sum(_power(src, n_power), to_red)
-    x = newton_root(dst, p, coef, n_power, newton_iters)
+    x, guarded = newton_root_plain(dst, p, coef, n_power, newton_iters)
+    if counts is not None:
+        counts[0] += guarded.sum()
     return dst + _f32(f_relax) * (x - dst)
 
 
@@ -307,7 +393,9 @@ def _kernels():
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.pysco_half_sweep.argtypes = [P, P, P, P, P, I, I, F, P]
     lib.pysco_scalaron_half_sweep.argtypes = [P, P, P, P, F, P, I, I, F, I,
-                                              I, P]
+                                              I, P, P]
+    lib.pysco_newton_root.argtypes = [P, P, P, F, P, ctypes.c_longlong, I,
+                                      I, P]
     lib.pysco_scalaron_exact_half_sweep.argtypes = [P, P, P, P,
                                                     ctypes.c_double, P, I,
                                                     I, F, P]
@@ -323,6 +411,7 @@ def _kernels():
     lib.pysco_mond_source.argtypes = [P, P, I, I, I, F, F, F, I,
                                       ctypes.c_double, P]
     for fn in (lib.pysco_half_sweep, lib.pysco_scalaron_half_sweep,
+               lib.pysco_newton_root,
                lib.pysco_scalaron_exact_half_sweep,
                lib.pysco_scalaron_quartic_exact_half_sweep,
                lib.pysco_norm2_blocks,
@@ -427,15 +516,44 @@ def scalaron_half_sweep(src, dst, hb, coef, to_red: bool, f_relax: float,
     n = src.shape[0]
     _check_sweep("scalaron_half_sweep", n, src=src, dst=dst, hb=hb,
                  coef=coef if plane else None)
+    counts = profiling.device_counters(NEWTON_COUNTERS, dst.device)
     out = torch.empty_like(dst)
     err = _kernels().pysco_scalaron_half_sweep(
         src.data_ptr(), dst.data_ptr(), hb.data_ptr(),
         coef.data_ptr() if plane else None,
         0.0 if plane else _f32(float(coef)), out.data_ptr(), n,
         int(bool(to_red)), _f32(f_relax), int(n_power), int(newton_iters),
-        _stream(out))
+        _ptr(counts), _stream(out))
     _raise_on(err, "scalaron_half_sweep")
     LAUNCHES["scalaron_half_sweep"] += 1
+    return out
+
+
+def newton_root(x, p, c0, n_power: int, iters: int = 3) -> torch.Tensor:
+    """The guarded root of u^(n_power+1) + p u + c0 = 0 a cell (the root
+    the scalaron sweep takes, :func:`newton_root_plain`) from the seed x,
+    for p and c0 formed elsewhere (the slab FAS, the masked Gauss-Seidel
+    oracles): ``iters`` float32 Newton steps, or the safe root where they
+    leave the root's bracket. ``c0`` is a float or a tensor of x's shape.
+    One launch, whatever the cells."""
+    plane = isinstance(c0, torch.Tensor) and c0.dim() > 0
+    if not _on_cuda("newton_root", x, p, c0 if plane else None):
+        return newton_root_plain(x, p, c0, n_power, iters)[0]
+    if n_power not in (2, 3):
+        raise ValueError(f"newton_root: n_power={n_power}, should be 2 "
+                         "(f(R) n = 1) or 3 (n = 2)")
+    x, p = x.contiguous(), p.contiguous()
+    _check("newton_root x", x, x.shape)
+    _check("newton_root p", p, x.shape)
+    coef = c0.contiguous() if plane else None
+    _check("newton_root c0", coef, x.shape)
+    out = torch.empty_like(x)
+    err = _kernels().pysco_newton_root(
+        x.data_ptr(), p.data_ptr(), _ptr(coef),
+        0.0 if plane else _f32(float(c0)), out.data_ptr(), x.numel(),
+        int(n_power), int(iters), _stream(out))
+    _raise_on(err, "newton_root")
+    LAUNCHES["newton_root"] += 1
     return out
 
 

@@ -348,12 +348,27 @@ class _Store:
 _STORE = _Store()
 
 
-def span(name: str, level=None):
+def span(name: str, level=None, counters=None):
     """A span around a layer's work, ``with profiling.span(name):``;
-    ``level`` is a multigrid level, kept as an attribute."""
+    ``level`` is a multigrid level, kept as an attribute, and
+    ``counters`` (a dict) what this span alone did, kept in its record
+    (a step's counters stay its own)."""
     if not _autograd_profiler._is_profiler_enabled:
         return _NULL
-    return _Span(_STORE, name, level)
+    s = _Span(_STORE, name, level)
+    if counters is not None:
+        s.counters = dict(counters)
+    return s
+
+
+def open_level():
+    """The level of the innermost open span that has one: the multigrid
+    level a layer below ``mg.smooth`` runs on. None while no profiler is
+    active."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return None
+    return next((s.level for s in reversed(_STORE.stack)
+                 if s.level is not None), None)
 
 
 def step_span(like: torch.Tensor):
@@ -393,9 +408,9 @@ def span_records() -> list:
     level, session, host enter and exit (``t0_ns``, ``t1_ns``, on
     ``time.time_ns()``), ``host_ms``, ``device_ms`` (the stream time from
     the span's first command to the end of its last; the host time off
-    the card), and for a step its counters and ``gap_ms``, the stream
-    time since the previous step of its session ended (None for the
-    first)."""
+    the card), ``counters`` (a step's, or those a span was opened with;
+    else None), and for a step ``gap_ms``, the stream time since the
+    previous step of its session ended (None for the first)."""
     return [{"name": s.name, "index": s.index, "parent": s.parent,
              "step": s.step, "level": s.level, "session": s.session,
              "t0_ns": s.t0, "t1_ns": s.t1, "host_ms": (s.t1 - s.t0) / 1e6,

@@ -27,6 +27,7 @@ from pysco_tpu_torch.utils import io as iostream
 
 from exact_root_states import (exact_states, quartic_off_cells,
                                quartic_states)
+from newton_root_states import packed_state
 
 torch.set_num_threads(1)
 
@@ -799,6 +800,67 @@ def test_scalaron_half_sweep_zero_steps_match_twin(cuda, power):
         assert torch.equal(torch.signbit(got), torch.signbit(want))
     assert torch.equal(stencil.scalaron_half_sweep(src, src, hb, float(-f0),
                                                    True, 1.25, power), src)
+
+
+def _guarded_sweep(src, dst, hb, coef, to_red, power):
+    """Kernel 4 in a profiled step: its output and the step's count of
+    guarded cells (the device counter newton_root_guarded)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from pysco_tpu_torch.utils import profiling
+
+    profiling.reset_spans()
+    try:
+        with profile(activities=[ProfilerActivity.CPU]):
+            with profiling.step_span(dst):
+                out = stencil.scalaron_half_sweep(src, dst, hb, coef, to_red,
+                                                  1.25, power)
+        step = [r for r in profiling.span_records() if r["name"] == "step"]
+        return out, step[-1]["counters"]["newton_root_guarded"]
+    finally:
+        profiling.reset_spans()
+
+
+@pytest.mark.parametrize("power", [2, 3])
+@pytest.mark.parametrize("n", [64, 128, 256, 512])
+def test_scalaron_half_sweep_guard_matches_twin(cuda, n, power):
+    """Kernel 4's guard: the pinned cells of tests/newton_root_states.py,
+    where the unguarded polish leaves its bracket, among in-bracket
+    cells. Bitwise its twin in both colours, with the coefficient plane and
+    with a scalar c0, and its counter newton_root_guarded counts the cells
+    the twin guards: the pinned ones, with the plane."""
+    (src, dst, hb, plane), at = packed_state(power, n, cuda)
+    c0 = float(plane.flatten()[int(at[0])])
+    for to_red in (True, False):
+        for coef in (plane, c0):
+            got, guarded = _guarded_sweep(src, dst, hb, coef, to_red, power)
+            counts = torch.zeros(1, dtype=torch.int64, device=cuda)
+            want = stencil.scalaron_half_sweep_plain(
+                src, dst, hb, coef, to_red, 1.25, power, counts=counts)
+            assert torch.equal(got, want)
+            assert guarded == int(counts[0])
+            if coef is plane:
+                assert guarded == len(at)
+
+
+@pytest.mark.parametrize("power", [2, 3])
+@pytest.mark.parametrize("n", [64, 512])
+def test_newton_root_kernel_matches_twin(cuda, n, power):
+    """The guarded root alone (``stencil.newton_root``, the slab FAS's):
+    on the pinned cells among in-bracket ones, with the coefficient plane
+    and with a scalar c0, and on a strided view of the seed, bitwise its
+    twin, one launch a call."""
+    (_, dst, p, plane), at = packed_state(power, n, cuda)
+    c0 = float(plane.flatten()[int(at[0])])
+    strided = tuple(t.transpose(0, 2) for t in (dst, p, plane))
+    for x, pv, coef in ((dst, p, plane), (dst, p, c0), strided):
+        before = stencil.LAUNCHES["newton_root"]
+        got = stencil.newton_root(x, pv, coef, power)
+        want, guarded = stencil.newton_root_plain(x, pv, coef, power)
+        assert stencil.LAUNCHES["newton_root"] == before + 1
+        assert torch.equal(got, want)
+        if isinstance(coef, torch.Tensor):
+            assert int(guarded.sum()) == len(at)
 
 
 @pytest.mark.parametrize("n", [4, 8, 64, 256, 512])

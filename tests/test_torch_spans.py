@@ -160,17 +160,24 @@ def test_fr_multigrid_counts_a_host_sync_per_solve_and_cycle():
     assert spans["mg.smooth"]["calls"] == 5 * stats["cycles"]
     assert spans["mg.restrict"]["calls"] == 2 * stats["cycles"]
     assert spans["mg.prolong"]["calls"] == 2 * stats["cycles"]
+    assert spans["mg.newton_root"]["calls"] == 5 * stats["fas_cycles"]
     recs = profiling.span_records()
     solve = [r for r in recs if r["name"] == "pm.solve"]
     assert len(solve) == 1
+    by_index = {r["index"]: r for r in recs}
     for r in recs:
-        if r["name"].startswith("mg."):
+        if r["name"] == "mg.newton_root":  # inside its smoothing call
+            parent = by_index[r["parent"]]
+            assert parent["name"] == "mg.smooth"
+            assert parent["level"] == r["level"]
+        elif r["name"].startswith("mg."):
             assert r["parent"] == solve[0]["index"]
     levels = {r["level"] for r in recs if r["name"] == "mg.smooth"}
     assert levels == {0, 1, 2}
     # the solve's own time is what its multigrid spans leave
     s = spans["pm.solve"]
-    mg_ms = sum(spans[k]["device_ms"] for k in spans if k.startswith("mg."))
+    mg_ms = sum(spans[k]["device_ms"] for k in spans
+                if k.startswith("mg.") and k != "mg.newton_root")
     assert s["self_device_ms"] == pytest.approx(s["device_ms"] - mg_ms)
 
 
@@ -420,3 +427,42 @@ def test_exact_roots_open_a_span_in_each_smoothing(fR_n, roots,
         assert totals["counters"]["exact_root_sweeps"] == 2 * sum(sweeps) > 0
     else:
         assert "exact_root_sweeps" not in totals["counters"]
+
+
+@pytest.mark.parametrize("power", [2, 3])
+@pytest.mark.parametrize("exact_root", [False, True])
+def test_scalaron_smoothing_opens_its_root_span_with_level(power,
+                                                           exact_root):
+    """A scalaron smoothing call inside ``mg.smooth`` of level 2 opens its
+    root's span (``mg.newton_root`` with the Newton roots, the default;
+    ``mg.exact_root`` with the closed forms) with that level and its
+    colour updates in its record (2 a sweep, under ``newton_root_sweeps``
+    or ``exact_root_sweeps``); the step counts the exact roots' too.
+    Untraced, nothing is recorded; on the CPU no kernel counts guarded
+    cells."""
+    from pysco_tpu_torch.models import cubic, quartic
+
+    mod = cubic if power == 2 else quartic
+    n = 8
+    gen = torch.Generator().manual_seed(power)
+    b = 0.1 * torch.randn((n, n, n), generator=gen)
+    rhs = 1e-4 * torch.randn((n, n, n), generator=gen)
+    x = mod.smoothing(mod.initialise_potential(b, -2000.0), b, -2000.0, 20,
+                      rhs, exact_root=True)
+    plain = mod.smoothing(x, b, -2000.0, 3, rhs, exact_root=exact_root)
+    assert profiling.span_records() == []
+    with _profiler():
+        with profiling.step_span(x):
+            with profiling.span("mg.smooth", 2):
+                traced = mod.smoothing(x, b, -2000.0, 3, rhs,
+                                       exact_root=exact_root)
+    assert torch.equal(plain, traced)
+    name, counter = (("mg.exact_root", "exact_root_sweeps") if exact_root
+                     else ("mg.newton_root", "newton_root_sweeps"))
+    recs = profiling.span_records()
+    root = [r for r in recs if r["name"] == name]
+    assert len(root) == 1
+    assert root[0]["level"] == 2 and root[0]["counters"] == {counter: 6}
+    step = recs[0]
+    assert step["name"] == "step"
+    assert step["counters"] == ({counter: 6} if exact_root else {})

@@ -18,6 +18,16 @@ limits. One JSON line a run (``FAULT``). The f(R) scalaron's faults:
 - ``u_unchanged``: the scalaron solve returns the u it starts from, the
   previous step's.
 
+With the Newton roots (``fR_root_solver = newton``), the polish's own:
+
+- ``one_newton_step``: one float32 Newton step a colour update in place
+  of three;
+- ``guarded_at_seed``: the cells whose steps leave the root's bracket keep
+  their seed, where the guard gives them the safe root (the sweep's twin
+  in torch, on the card too: the kernel has no such mode);
+- ``coarse_rhs_dropped``: the FAS rhs plane left out of c0 on the coarse
+  levels (c0 = h^2 q there too).
+
 QUMOND's (``mond_function = simple``):
 
 - ``nu_one``: nu = 1 on every face, which is Newton's source (``mond.rhs``
@@ -44,13 +54,50 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path[:0] = [str(ROOT / "benchmark"), str(ROOT)]
 
 
-def _faults(theory: str):
+def _newton_faults():
+    import torch
+
+    from pysco_tpu_torch.models import cubic, laplacian, quartic
+    from pysco_tpu_torch.ops import stencil
+
+    sweep = stencil.scalaron_half_sweep
+
+    def one_step(src, dst, hb, coef, to_red, f_relax, n_power,
+                 newton_iters=3):
+        return sweep(src, dst, hb, coef, to_red, f_relax, n_power, 1)
+
+    def at_seed(src, dst, hb, coef, to_red, f_relax, n_power,
+                newton_iters=3):
+        p = hb - stencil._INVSIX * stencil.packed_neighbour_sum(
+            stencil._power(src, n_power), to_red)
+        x, guarded = stencil.newton_root_plain(dst, p, coef, n_power,
+                                               newton_iters)
+        x = torch.where(guarded, dst, x)
+        return dst + stencil._f32(f_relax) * (x - dst)
+
+    def no_rhs(x, b, q, n_smoothing, rhs, exact_root, n_power):
+        return laplacian.packed_scalaron_smoothing(x, b, q, n_smoothing,
+                                                   None, exact_root, n_power)
+
+    faults = {"one_newton_step": [(stencil, "scalaron_half_sweep", one_step)],
+              "guarded_at_seed": [(stencil, "scalaron_half_sweep", at_seed)],
+              "coarse_rhs_dropped": [(cubic, "packed_scalaron_smoothing",
+                                      no_rhs),
+                                     (quartic, "packed_scalaron_smoothing",
+                                      no_rhs)],
+              "clean": None}
+    return faults
+
+
+def _faults(theory: str, roots: str = "exact"):
     import numpy as np
     import torch
 
     from pysco_tpu_torch import solver
     from pysco_tpu_torch.models import mond, multigrid
 
+    if theory == "fr" and roots == "newton":
+        return _newton_faults()
     dyn = solver.compute_dynamics
     if theory == "mond":
         def g0_exponent(p):
@@ -131,20 +178,22 @@ def main(argv=None) -> int:
     param["z_out"] = list(param["z_out"])
     ref = check.reference_for(w["config"], config, param, here)
     sim, held, _ = cell._set_up(param, traffic, args.seed, dev, base)
-    faults = _faults(str(param["theory"]).casefold())
+    faults = _faults(str(param["theory"]).casefold(),
+                     str(param.get("fR_root_solver", "exact")).casefold())
 
     def checked(name, z):
         sim.restore()
         saved = sim.saved[0]
         fault = faults[name]
-        if fault is not None:
-            mod, attr, fn = fault
-            old = getattr(mod, attr)
+        patches = [] if fault is None else (
+            fault if isinstance(fault, list) else [fault])
+        kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in patches]
+        for mod, attr, fn in patches:
             setattr(mod, attr, fn)
         try:
             info = sim.step()
         finally:
-            if fault is not None:
+            for mod, attr, old in kept:
                 setattr(mod, attr, old)
         held.step_in = (saved[0], saved[1], saved[2], saved[4])
         held.step.update(dt=info["dt"], aexp=info["aexp"])
